@@ -1,0 +1,323 @@
+"""Simulation driver: ``python -m dqmc_tpu_torch``.
+
+PyTorch counterpart of ``dqmc_tpu/run.py`` for the slice the port serves so
+far: the attractive Hubbard model with dense kinetics on any of the
+package's lattices, walker-batched on one device through the fused block
+engine (the wrap/site-loop kernels and the CGS2 QR kernel on CUDA, their
+plain twins on the CPU), float32 or float64, equal-time measurement of
+density, doubleOcc, swave and densityCorr, binned HDF5 output that
+``python -m dqmc_tpu.analysis`` reads.
+
+Reads ``parameters.in`` (the JAX package's schema) from the working
+directory.  ``--device`` selects the device (``cuda`` by default; CPU runs
+say ``--device cpu``); nothing falls back to the CPU when CUDA is missing.
+Every configuration outside the slice raises NotImplementedError naming
+the ROADMAP item that will port it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+
+import torch
+
+from dqmc_tpu_torch.config import Parameters
+from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
+from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
+                                         rebuild_stack_and_greens,
+                                         reset_error_stats)
+from dqmc_tpu_torch.lattice import make_lattice
+from dqmc_tpu_torch.measure.manager import MeasurementManager
+from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard
+
+
+def _unported(params: Parameters):
+    """(what, ROADMAP item) for every requested feature outside the slice."""
+    get_s, get_b, get_i = params.get_str, params.get_bool, params.get_int
+    return [
+        (what, item) for on, what, item in [
+            (get_b("simulation", "isMeasureUnequalTime", False),
+             "isMeasureUnequalTime = true", "slice 2, engine/uneqtime.py"),
+            (get_s("simulation", "dtype", "") in ("df32", "df"),
+             "dtype = df32", "slice 4, the multiword engines"),
+            (get_s("simulation", "measure_precision", "engine") != "engine",
+             "measure_precision other than engine",
+             "slice 4, the multiword tiers"),
+            (get_b("ParallelTempering", "enabled", False),
+             "parallel tempering", "slice 3, parallel/tempering.py"),
+            (get_i("walkers", "n_devices", 0) > 1, "n_devices > 1",
+             "slice 3, devices"),
+            (bool(get_s("distributed", "coordinator_address", "")),
+             "multi-host runs", "slice 3, devices"),
+            (get_i("simulation", "checkpoint_every", 0) > 0,
+             "checkpointing", "slice 2, io/checkpoint.py"),
+            (get_s("hubbard", "model", "attractive") != "attractive",
+             "the repulsive model", "slice 3, other models"),
+            (get_b("hubbard", "checkerboard", False),
+             "checkerboard kinetics", "slice 3, other models"),
+            (get_b("simulation", "measure_spin", False), "measure_spin",
+             "slice 2, engine/uneqtime.py and observables"),
+            (get_b("simulation", "measure_charge", False), "measure_charge",
+             "slice 2, engine/uneqtime.py and observables"),
+            (get_s("simulation", "engine", "auto") not in ("auto", "fused"),
+             "engine = slice", "the slice engine and kernels #3-#6"),
+            (get_s("simulation", "fused_update", "delayed") != "delayed",
+             "fused_update = submatrix", "Pallas kernels to port, #2c"),
+            (get_s("simulation", "wrap_precision", "highest") != "highest",
+             "wrap_precision other than highest",
+             "not to port (TPU MXU-pass knob)"),
+            (get_s("simulation", "matmul_precision", "highest")
+             != "highest", "matmul_precision other than highest",
+             "not to port (TPU MXU-pass knob)"),
+            (get_s("io", "sink", "h5") != "h5", "io sink other than h5",
+             "slice 2, io"),
+            (bool(get_s("simulation", "profile_dir", "")), "profile_dir",
+             "slice 1, the bench.py port"),
+        ] if on]
+
+
+def _resolve_dtype(params: Parameters, device: torch.device):
+    name = params.get_str("simulation", "dtype", "")
+    if name in ("float32", "f32"):
+        return torch.float32
+    if name in ("float64", "f64"):
+        return torch.float64
+    if name:
+        raise ValueError(f"[simulation] dtype {name!r}: float32 or float64")
+    return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def _parse_n_stab(params: Parameters):
+    """(start_value, auto_flag) for [simulation] n_stab (``auto`` tunes it
+    during thermalization, as in the JAX driver)."""
+    raw = params.get_str("simulation", "n_stab").strip().lower()
+    if raw == "auto":
+        return params.get_int("simulation", "n_stab_start", 5), True
+    return params.get_int("simulation", "n_stab"), False
+
+
+@dataclasses.dataclass
+class RunSummary:
+    n_walkers: int
+    n_bins: int
+    n_sweeps: int
+    therm_seconds: float
+    measure_seconds: float
+    sweeps_per_sec: float          # sweep-pairs/sec summed over walkers
+    acc_rate: float
+    max_precision_error: float     # steady-state (measurement phase only)
+    mean_precision_error: float
+    therm_max_precision_error: float
+    n_stab: int                    # final (possibly auto-adapted) value
+    device: str
+    # scalar observables averaged over walkers and bins
+    observables: dict = dataclasses.field(default_factory=dict)
+
+
+def _stats(states) -> dict:
+    return dict(acc_sum_mean=float(states.acc_sum.mean()),
+                err_max=float(states.err_max.max()),
+                err_sum=float(states.err_sum.sum()),
+                err_count=float(states.err_count.sum()))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_simulation(params: Parameters, *, out_dir: str | None = "results",
+                   verbose: bool = True, device="cuda") -> RunSummary:
+    """Run the simulation ``params`` describes on ``device``; bins go to
+    ``out_dir`` (None writes no files: the run then stops before any
+    output and returns only its summary)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested but "
+                           "torch.cuda.is_available() is false; run with "
+                           "--device cpu for a CPU run")
+    unported = _unported(params)
+    if unported:
+        raise NotImplementedError(
+            "not ported to dqmc_tpu_torch yet: " + "; ".join(
+                f"{what} (ROADMAP: {item})" for what, item in unported))
+    # full-precision float32 products: TF32 costs the stabilization
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    log = print if verbose else (lambda *a, **k: None)
+
+    dtype = _resolve_dtype(params, device)
+    n_sweeps = params.get_int("simulation", "n_sweeps")
+    n_therms = params.get_int("simulation", "n_therms")
+    n_bins = params.get_int("simulation", "n_bins")
+    nt = params.get_int("simulation", "nt")
+    n_stab, n_stab_auto = _parse_n_stab(params)
+    symmetric = params.get_bool("simulation", "symmetric", False)
+    seed = params.get_int("simulation", "seed", 42)
+    n_walkers = params.get_int("walkers", "n_walkers", 1)
+
+    lat = make_lattice(params.get_str("Lattice", "geometry", "square"),
+                       params.get_int("Lattice", "L1"),
+                       params.get_int("Lattice", "L2"))
+    if out_dir is not None:
+        lat.save_info(os.path.join(out_dir, "info"))
+    model = AttractiveHubbard.from_params(params, lat, dtype=dtype,
+                                          device=device)
+    if not supports_fused(model):
+        raise NotImplementedError(
+            f"ns = {model.n_sites} > 512 needs the per-slice engine "
+            f"(ROADMAP: the slice engine and kernels #3-#6)")
+    cfg = EngineConfig(nt=nt, n_stab=n_stab)
+    log(f"Standard DQMC run: {lat.L1}x{lat.L2} lattice, "
+        f"beta={float(model.beta)}, nt={nt}, {n_walkers} walkers, "
+        f"dtype={str(dtype).replace('torch.', '')}, device={device}")
+    log("Engine: fused block (wrap + site-loop kernels, CGS2 QR "
+        "stabilization)")
+
+    states = init_state(model, cfg, make_generators(seed, n_walkers, device))
+    manager = MeasurementManager(lat, n_walkers=n_walkers, out_dir=out_dir,
+                                 device=device)
+    manager.add_defaults()
+
+    # the reference warns when the naive-vs-stabilized deviation exceeds
+    # 1e-6 (dqmc.cpp:390-393); the f32 default reflects the single-precision
+    # stabilization bound.  Applies to the steady-state error.
+    err_warn = params.get_float("simulation", "err_warn_threshold",
+                                1e-6 if dtype == torch.float64 else 1e-2)
+    warned = False
+
+    def reseat(states, cfg):
+        """Rebuild stack + G from the fields under a new n_stab (the chain
+        itself -- fields, generators, signs -- is untouched)."""
+        stack, G, log_det = rebuild_stack_and_greens(model, cfg,
+                                                     states.fields)
+        return dataclasses.replace(states, G=G, stack=stack,
+                                   log_det_M=log_det)
+
+    def chunk_err_mean(states):
+        s = _stats(states)
+        return s["err_sum"] / s["err_count"] if s["err_count"] else 0.0
+
+    # n_stab = auto: tune during thermalization to the loosest value whose
+    # steady chunk error stays below the warn threshold (/16 hysteresis)
+    adapt_marks = ()
+    if n_stab_auto and n_therms >= 4:
+        k = min(8, n_therms // 2)
+        adapt_marks = sorted({(i + 1) * n_therms // k for i in range(k - 1)})
+    n_stab_cap = min(cfg.nt, 32)
+
+    def adapt(states, cfg):
+        err_mean = chunk_err_mean(states)
+        new = cfg.n_stab
+        if err_mean > err_warn and cfg.n_stab > 1:
+            new = cfg.n_stab - 1
+        elif err_mean < err_warn / 16 and cfg.n_stab < n_stab_cap:
+            new = cfg.n_stab + 1
+        states = reset_error_stats(states)
+        if new == cfg.n_stab:
+            return states, cfg
+        cfg = dataclasses.replace(cfg, n_stab=new)
+        log(f"n_stab auto: chunk err_mean {err_mean:.2e} "
+            f"(warn {err_warn:.0e}) -> n_stab = {new}")
+        return reseat(states, cfg), cfg
+
+    t0 = time.perf_counter()
+    for it in range(n_therms):
+        states = sweep_pair_fused(model, cfg, states)
+        if (it + 1) in adapt_marks:
+            states, cfg = adapt(states, cfg)
+    _sync(device)
+    dt_therm = time.perf_counter() - t0
+    log(f"Thermalization done in {dt_therm:.2f} seconds"
+        + (f" (auto n_stab = {cfg.n_stab})" if n_stab_auto else ""))
+
+    therm_err_max = _stats(states)["err_max"]
+    if n_therms:
+        log(f"Thermalization transient precision error = "
+            f"{therm_err_max:.4e}")
+    states = reset_error_stats(states)
+
+    t0 = time.perf_counter()
+    for ibin in range(n_bins):
+        acc = manager.zero_acc(states.G)
+        for _ in range(n_sweeps):
+            states = sweep_pair_fused(model, cfg, states)
+            G = half_warp(model, states.G) if symmetric else states.G
+            for key, v in manager.increments(G).items():
+                acc[key] += v
+        manager.ingest_bin(acc, n_sweeps)
+        if not warned:
+            cur_err = float(states.err_max.max())
+            if cur_err > err_warn:
+                print(f"WARNING: GF precision {cur_err:.3e} exceeds "
+                      f"{err_warn:.1e}. Reduce n_stab or increase nt.",
+                      file=sys.stderr)
+                warned = True
+        # n_stab = auto in the measurement phase: tighten only
+        if n_stab_auto and cfg.n_stab > 1 and ibin + 1 < n_bins:
+            err_mean = chunk_err_mean(states)
+            if err_mean > err_warn:
+                cfg = dataclasses.replace(cfg, n_stab=cfg.n_stab - 1)
+                log(f"n_stab auto (measurement): bin err {err_mean:.2e} "
+                    f"exceeds warn {err_warn:.0e} -> n_stab = "
+                    f"{cfg.n_stab}, stack reseated")
+                states = reset_error_stats(reseat(states, cfg))
+                warned = False
+    _sync(device)
+    dt_meas = time.perf_counter() - t0
+    manager.close()
+
+    # summary (main.cpp:180-208); a sweep here is the reference's
+    # forward+backward pair, so acceptance divides by 2 sweeps per pair
+    total = n_bins * n_sweeps
+    stats = _stats(states)
+    acc_rate = stats["acc_sum_mean"] / (2.0 * max(n_therms + total, 1))
+    err_max = stats["err_max"]
+    err_mean = stats["err_sum"] / max(stats["err_count"], 1)
+    rate = total * n_walkers / dt_meas if dt_meas > 0 else float("inf")
+    bins = manager.bin_scalars
+    observables = {n: sum(b[n] for b in bins) / len(bins)
+                   for n in (bins[0] if bins else {})}
+    h, rem = divmod(int(dt_meas), 3600)
+    m, s = divmod(rem, 60)
+    log(f"DQMC measurement sweeps are finished in {h} hours {m} minutes "
+        f"{s} seconds.")
+    log(f"Average acceptance rate = {acc_rate:.4f}")
+    log(f"Max, Mean Precision Error (steady-state) = {err_max:.4e}, "
+        f"{err_mean:.4e}")
+    log(f"Throughput: {rate:.3f} walker-sweep-pairs/sec")
+    return RunSummary(
+        n_walkers=n_walkers, n_bins=n_bins, n_sweeps=n_sweeps,
+        therm_seconds=dt_therm, measure_seconds=dt_meas,
+        sweeps_per_sec=rate, acc_rate=acc_rate,
+        max_precision_error=err_max, mean_precision_error=err_mean,
+        therm_max_precision_error=therm_err_max, n_stab=cfg.n_stab,
+        device=str(device), observables=observables)
+
+
+def main(argv=None) -> RunSummary:
+    import argparse
+    p = argparse.ArgumentParser(
+        prog="dqmc_tpu_torch",
+        description="Determinant QMC of the attractive Hubbard model on "
+                    "PyTorch/CUDA. Run inside a directory containing "
+                    "parameters.in.")
+    p.add_argument("-f", "--file", default="parameters.in",
+                   help="parameter file (default: parameters.in)")
+    p.add_argument("-d", "--out-dir", default="results",
+                   help="output directory (default: results)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; say cpu for a CPU "
+                        "run)")
+    args = p.parse_args(argv)
+    return run_simulation(Parameters(args.file), out_dir=args.out_dir,
+                          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,128 @@
+"""dqmc_tpu_torch imports without a CUDA toolchain and never imports jax;
+configurations outside the ported slice raise instead of being ignored;
+a CUDA request without a CUDA device raises instead of falling back."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dqmc_tpu.config import Parameters
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import dqmc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dqmc_tpu_torch.__path__,
+                                               'dqmc_tpu_torch.')
+         if not m.name.endswith('__main__')]
+for name in names:
+    importlib.import_module(name)
+assert 'jax' not in sys.modules, 'jax was imported'
+assert 'triton' not in sys.modules, 'triton was imported'
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+_BASE = """
+[Lattice]
+L1 = 4
+L2 = 4
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 2.0
+nt = 8
+n_therms = 1
+n_sweeps = 1
+n_bins = 1
+n_stab = 4
+"""
+
+
+@pytest.mark.parametrize("section,key,value", [
+    ("simulation", "isMeasureUnequalTime", "true"),
+    ("simulation", "dtype", "df32"),
+    ("simulation", "measure_precision", "tf32"),
+    ("ParallelTempering", "enabled", "true"),
+    ("walkers", "n_devices", "2"),
+    ("simulation", "checkpoint_every", "1"),
+    ("hubbard", "model", "repulsive"),
+    ("hubbard", "checkerboard", "true"),
+    ("simulation", "measure_spin", "true"),
+    ("simulation", "measure_charge", "true"),
+    ("simulation", "engine", "slice"),
+    ("simulation", "fused_update", "submatrix"),
+])
+def test_unported_configuration_raises(tmp_path, section, key, value):
+    from dqmc_tpu_torch.run import run_simulation
+    params = Parameters.from_string(_BASE)
+    params.set(section, key, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_simulation(params, out_dir=str(tmp_path / "results"),
+                       verbose=False, device="cpu")
+
+
+def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):
+    from dqmc_tpu_torch.run import run_simulation
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_simulation(Parameters.from_string(_BASE),
+                       out_dir=str(tmp_path / "results"), verbose=False,
+                       device="cuda")
+
+
+@pytest.mark.parametrize("kernel", ["cgs2_qr", "fused_wrap", "fused_sites"])
+def test_kernel_wrappers_raise_on_cpu_tensors(kernel):
+    """A kernel wrapper launches its kernel or raises: it never runs the
+    plain twin, and a refused call counts no launch."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.engine import fused
+    from dqmc_tpu_torch.ops import qr_kernel
+    W, n = 2, 32
+    G = torch.zeros((W, n, n))
+    v = torch.zeros((W, n))
+    calls = {
+        "cgs2_qr": lambda: qr_kernel._cgs2_qr_cuda(G, True),
+        "fused_wrap": lambda: fused.wrap_gemm_cuda(G, G, rv=v),
+        "fused_sites": lambda: fused.site_loop_cuda(
+            G, v.clone(), torch.zeros((1, n), dtype=torch.int32), v, v, v,
+            0, 32),
+    }
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        calls[kernel]()
+    assert _cuda.LAUNCHES == before
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """The build is deferred to first use and reports a missing toolkit."""
+    from dqmc_tpu_torch import _cuda
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.build()
+
+
+def test_kernel_sources_are_listed():
+    from dqmc_tpu_torch import _cuda
+    names = [p.name for p in _cuda.sources()]
+    assert names == ["cgs2_qr.cu", "fused_block.cu"]
+    assert _cuda.library_path().parent == _cuda.BUILD_DIR
+    assert set(_cuda.LAUNCHES) == {"cgs2_qr", "fused_wrap", "fused_sites"}
