@@ -4,14 +4,21 @@ Determinant quantum Monte Carlo of the attractive Hubbard model on an
 NVIDIA GPU: plain torch for the glue, hand-written CUDA kernels
 (``csrc/``) where the JAX package ran Pallas kernels on a TPU.  The module
 names mirror ``dqmc_tpu``'s.  The package imports ``torch`` and never
-``jax``; it reuses the JAX-free modules of ``dqmc_tpu`` (config, lattice,
-io.h5out, analysis).
+``jax``, and nothing of ``dqmc_tpu``: it keeps its own copies of the
+JAX-free modules it needs (config, lattice, io.h5out).  The HDF5 bins it
+writes are read by ``python -m dqmc_tpu.analysis``.
 
+- :mod:`dqmc_tpu_torch.config`   — the ``parameters.in`` schema
+- :mod:`dqmc_tpu_torch.lattice`  — lattice geometry and the ``info`` file
 - :mod:`dqmc_tpu_torch.hsfield`  — the 4-state GHQ field
-- :mod:`dqmc_tpu_torch.models`   — the attractive Hubbard model, dense kinetics
-- :mod:`dqmc_tpu_torch.ops`      — LDR algebra and the CGS2 QR kernel
-- :mod:`dqmc_tpu_torch.engine`   — walker state, stack rebuild, fused sweep
+- :mod:`dqmc_tpu_torch.models`   — the attractive Hubbard model, dense
+  kinetics
+- :mod:`dqmc_tpu_torch.ops`      — LDR algebra, the CGS2 QR kernel and the
+  site-update kernels (delayed, submatrix, rank-1)
+- :mod:`dqmc_tpu_torch.engine`   — walker state, stack rebuild, the fused
+  and the per-slice sweeps
 - :mod:`dqmc_tpu_torch.measure`  — equal-time observables and HDF5 bins
+- :mod:`dqmc_tpu_torch.io`       — the HDF5 bin writer
 - :mod:`dqmc_tpu_torch.run`      — the ``python -m dqmc_tpu_torch`` driver
 """
 

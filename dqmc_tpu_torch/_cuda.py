@@ -1,14 +1,17 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` expose a plain C interface.  At first use they
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library under
-``_build/`` (named by a hash of the sources and flags, so an edit never
-loads a stale build) and loaded with ctypes.  Importing this module needs no
-CUDA toolchain; only :func:`lib` (and so every kernel launch) does.
+The sources in ``csrc/*.cu`` expose a plain C interface.  At first use each
+is compiled with its own ``nvcc`` process for ``sm_90a`` (all started
+together), and the objects are linked into one shared library under
+``_build/`` (named by a hash of the sources, headers and flags, so an edit
+never loads a stale build) and loaded with ctypes.  Importing this module
+needs no CUDA toolchain; only :func:`lib` (and so every kernel launch)
+does.
 
-Every launch goes through :func:`launch`, which raises on a non-zero
-``cudaGetLastError()`` and then adds one to the kernel's entry in
-:data:`LAUNCHES` — a plain counter that lets a run show which kernels it
+Every launch goes through :func:`launch` (or :func:`call` plus
+:func:`count` in a wrapper's inner loop), which raises on a non-zero
+``cudaGetLastError()`` and adds one per kernel launch to the kernel's entry
+in :data:`LAUNCHES` -- a plain counter that lets a run show which kernels it
 went through.
 """
 
@@ -28,16 +31,28 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0}
+LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0,
+            "delayed_sites": 0, "delayed_flush": 0, "rank1_sites": 0,
+            "submatrix_decide": 0, "submatrix_prep": 0,
+            "submatrix_flush": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "dqmc_cgs2_qr": (_P, _P, _P, _P, _P, _I, _I, _P),
     "dqmc_wrap_gemm": (_P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P),
     "dqmc_site_loop": (_P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    "dqmc_delayed_sites": (_P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I,
+                           _I, _I, _P),
+    "dqmc_delayed_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "dqmc_rank1_sites": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _P),
+    "dqmc_submatrix_decide": (_P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _P),
+    "dqmc_submatrix_prep": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                            _P),
+    "dqmc_submatrix_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -55,7 +70,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdqmc_kernels_{h.hexdigest()[:16]}.so"
@@ -70,20 +85,39 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails (after all have ended)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{text}")
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library (no-op when built)."""
+    """Compile each ``csrc/*.cu`` with its own nvcc, in parallel, and link
+    the shared library (no-op when built)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        tmp = out.with_name(f"{tag}.so.tmp")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -122,15 +156,24 @@ def suffix(dtype: torch.dtype) -> str:
     raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
 
 
+def call(fn, *args) -> None:
+    """Call a C entry point (from :func:`lib`) on the current device;
+    raise on a CUDA error.  The caller counts the launch."""
+    err = fn(*args)
+    if err != 0:
+        msg = lib().dqmc_error_string(err).decode()
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} ({msg})")
+
+
+def count(kernel: str, n: int = 1) -> None:
+    LAUNCHES[kernel] += n
+
+
 def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     """Call one C entry point on ``device`` and count the launch."""
-    handle = lib()
     with torch.cuda.device(device):
-        err = getattr(handle, fn_name)(*args)
-    if err != 0:
-        msg = handle.dqmc_error_string(err).decode()
-        raise RuntimeError(f"{fn_name}: CUDA error {err} ({msg})")
-    LAUNCHES[kernel] += 1
+        call(getattr(lib(), fn_name), *args)
+    count(kernel)
 
 
 def check(t: torch.Tensor, name: str, *, device: torch.device,

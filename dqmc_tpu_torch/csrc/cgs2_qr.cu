@@ -4,7 +4,9 @@
 // behind cgs2_qr / cgs2_qr_inv), which every LDR fold (to_ldr) and every
 // stabilized solve and log-det (_qr_solve_logdet) of the main path runs.
 //
-// What it computes, per matrix A (n x n, n a multiple of 32, n <= 512):
+// What it computes, per matrix A (n x n, n a multiple of 32; n <= 1024 in
+// float32, n <= 512 in float64, where the 32-row panel still fits in shared
+// memory):
 // classical Gram-Schmidt with reorthogonalization (CGS2) on the columns of
 // A, in 32-column panels.  Every column receives two complete projection
 // passes against all earlier columns: two block passes against the finished
@@ -21,7 +23,9 @@
 // per matrix means a batch of B = W = 4..16 matrices occupies 4..16 of the
 // 132 SMs.  Q^T lives in global memory (L2 holds 16 x 256 KB at the
 // headline size); the current 32-row panel is staged in shared memory
-// (32 KB at n = 256 f32, 128 KB at n = 512 f64).
+// (32 KB at n = 256 f32, 128 KB at n = 512 f64 or n = 1024 f32).  At
+// n = 1024 (the 32x32 lattice) the block passes hold about 4 n^3 FLOPs per
+// matrix on one SM, so a call takes tens of milliseconds.
 //
 // What the design does about it: the block passes, which hold most of the
 // FLOPs, read Q^T rows coalesced and keep 32 accumulators per thread in
@@ -187,7 +191,8 @@ cgs2_qr_kernel(const T* __restrict__ at, T* __restrict__ qt, T* __restrict__ r,
 template <typename T>
 int launch_cgs2(const T* at, T* qt, T* r, T* rinv, T* cbuf, int batch, int n,
                 void* stream) {
-  if (n <= 0 || n % PANEL != 0 || n > 512 || batch <= 0)
+  const int max_n = sizeof(T) == 4 ? 1024 : 512;
+  if (n <= 0 || n % PANEL != 0 || n > max_n || batch <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(T) * ((size_t)PANEL * n + PANEL * PANEL + 2 * PANEL + WARPS);

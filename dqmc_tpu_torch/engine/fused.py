@@ -29,16 +29,15 @@ chain from the same streams.
 
 from __future__ import annotations
 
-import dataclasses
 
 import torch
 
 from dqmc_tpu_torch import _cuda
 from dqmc_tpu_torch.engine.state import EngineConfig, WalkerState
-from dqmc_tpu_torch.engine.sweep import (draw_slice_randoms, identity_slot,
-                                         slot_get, stack_from_slots)
+from dqmc_tpu_torch.engine.sweep import draw_sweep_streams as \
+    draw_walker_streams
+from dqmc_tpu_torch.engine.sweep import run_sweep
 from dqmc_tpu_torch.hsfield import new_state
-from dqmc_tpu_torch.ops.linalg import inv_one_plus_ldr_dag, mat_mul_ldr
 
 _K = 32                 # delayed-update rank when it divides ns
 _SMEM_BYTES = 232448    # dynamic shared memory one block may use (H100)
@@ -254,25 +253,8 @@ def supports_fused(model, cfg: EngineConfig | None = None) -> bool:
 def draw_sweep_streams(gens, nt: int, ns: int, dtype):
     """One sweep's streams: orders (nt, ns) from walker 0, props and us
     (W, nt, ns) from each walker's generator."""
-    per = [draw_slice_randoms(g, ns, dtype, (nt,)) for g in gens]
-    return (per[0][0], torch.stack([p[1] for p in per]),
-            torch.stack([p[2] for p in per]))
-
-
-def _stabilize_one(G, F_prev, other, Bbar, forward):
-    """Stabilization at a block boundary: extend the carried chain factor
-    with the block product and recompute G from the stable factorization;
-    ``other`` is the opposite half-chain's slot from the input stack.
-    Returns (G_new, F_new, log_det, err) with err the per-walker max
-    deviation of the propagated G from the stabilized one."""
-    if forward:
-        F_new = mat_mul_ldr(Bbar, F_prev)
-        G_new, log_det = inv_one_plus_ldr_dag(F_new, other)
-    else:
-        F_new = mat_mul_ldr(Bbar.transpose(-1, -2), F_prev)
-        G_new, log_det = inv_one_plus_ldr_dag(other, F_new)
-    err = torch.amax(torch.abs(G - G_new), dim=(1, 2, 3))
-    return G_new, F_new, log_det, err
+    orders, props, us = draw_walker_streams(gens, nt, ns, dtype)
+    return orders[0], props, us
 
 
 def sweep_fused(model, cfg: EngineConfig, states: WalkerState, *,
@@ -286,51 +268,22 @@ def sweep_fused(model, cfg: EngineConfig, states: WalkerState, *,
     if not supports_fused(model, cfg):
         raise NotImplementedError("fused sweep: dense single-flavor "
                                   "det^2 model with ns <= 512 required")
-    W = states.G.shape[0]
-    nfl, ns, dtype, dev = model.n_flavor, model.n_sites, model.dtype, \
-        model.device
+    if cfg.fused_update != "delayed":
+        raise NotImplementedError(
+            f"fused_update = {cfg.fused_update}: only the delayed scheme is "
+            f"ported (ROADMAP: Pallas kernels to port, #2c)")
     if streams is None:
-        streams = draw_sweep_streams(states.gens, cfg.nt, ns, dtype)
-    orders, props, us = (torch.as_tensor(x).to(dev) for x in streams)
+        streams = draw_sweep_streams(states.gens, cfg.nt, model.n_sites,
+                                     model.dtype)
+    orders, props, us = (torch.as_tensor(x).to(model.device)
+                         for x in streams)
 
-    n_stab = cfg.n_stab
-    n_full, rem = cfg.nt // n_stab, cfg.nt % n_stab
-    blocks = [(i, i * n_stab, n_stab) for i in range(n_full)]
-    tail = (cfg.n_stack - 1, n_full * n_stab, rem) if rem else None
-    if forward:
-        seq = blocks + ([tail] if tail else [])
-    else:
-        seq = ([tail] if tail else []) + blocks[::-1]
-
-    id_w = identity_slot(nfl, ns, dtype, dev, (W,))
-    fields = states.fields.clone()
-    G, F_prev, log_det = states.G, id_w, states.log_det_M
-    acc, sgn = states.acc_sum, states.sign
-    emax, esum, ecnt = states.err_max, states.err_sum, states.err_count
-    slots, tail_slot = [], None
-    for blk in seq:
-        i_stack, l0, n = blk
+    def run_block(l0, n, G, fields_blk):
         win = slice(l0, l0 + n)
-        G, fb, bbar, acc_b, sgn_b = fused_block(
-            model, orders[win], props[:, win], us[:, win], G, fields[:, win],
-            n_slices=n, forward=forward)
-        fields[:, win] = fb
-        other = slot_get(states.stack, i_stack + (2 if forward else 0))
-        G, F_prev, log_det, err = _stabilize_one(G, F_prev, other, bbar,
-                                                 forward)
-        if blk is tail:
-            tail_slot = F_prev
-        else:
-            slots.append(F_prev)
-        acc = acc + acc_b * (n / cfg.nt)
-        sgn = sgn * sgn_b
-        emax = torch.maximum(emax, err)
-        esum = esum + err
-        ecnt = ecnt + 1.0
-    stack = stack_from_slots(slots, id_w, tail_slot, reverse=not forward)
-    return dataclasses.replace(
-        states, fields=fields, G=G, stack=stack, log_det_M=log_det,
-        acc_sum=acc, sign=sgn, err_max=emax, err_sum=esum, err_count=ecnt)
+        return fused_block(model, orders[win], props[:, win], us[:, win], G,
+                           fields_blk, n_slices=n, forward=forward)
+
+    return run_sweep(model, cfg, states, run_block, forward=forward)
 
 
 def sweep_pair_fused(model, cfg: EngineConfig, states: WalkerState,

@@ -93,7 +93,7 @@ class MeasurementManager:
 
     def _writer(self, w: int):
         # h5py is imported only when a bin is written
-        from dqmc_tpu.io.h5out import BinFileWriter
+        from dqmc_tpu_torch.io.h5out import BinFileWriter
         if self._writers is None:
             self._writers = {}
         if w not in self._writers:

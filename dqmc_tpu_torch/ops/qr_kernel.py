@@ -22,7 +22,8 @@ import torch
 from dqmc_tpu_torch import _cuda
 
 _BLOCK = 32
-_MAX_N = 512
+# the kernel stages a 32-row panel (32 n elements) in shared memory
+_MAX_N = {torch.float32: 1024, torch.float64: 512}
 
 
 def cgs2_qr_plain(A: torch.Tensor, with_inv: bool = False):
@@ -68,9 +69,10 @@ def cgs2_qr_plain(A: torch.Tensor, with_inv: bool = False):
 def _cgs2_qr_cuda(A: torch.Tensor, with_inv: bool):
     """Launch K1 on a flat CUDA batch A (B, n, n)."""
     B, n, _ = A.shape
-    if n % _BLOCK or n > _MAX_N:
+    max_n = _MAX_N.get(A.dtype, 0)
+    if n % _BLOCK or n > max_n:
         raise ValueError(f"cgs2_qr kernel: n={n} must be a multiple of "
-                         f"{_BLOCK} and <= {_MAX_N}")
+                         f"{_BLOCK} and <= {max_n} for {A.dtype}")
     _cuda.check(A, "A", device=A.device, dtype=A.dtype, shape=(B, n, n))
     sfx = _cuda.suffix(A.dtype)
     at = A.transpose(-1, -2).contiguous()

@@ -3,10 +3,19 @@
 PyTorch counterpart of ``dqmc_tpu/run.py`` for the slice the port serves so
 far: the attractive Hubbard model with dense kinetics on any of the
 package's lattices, walker-batched on one device through the fused block
-engine (the wrap/site-loop kernels and the CGS2 QR kernel on CUDA, their
-plain twins on the CPU), float32 or float64, equal-time measurement of
-density, doubleOcc, swave and densityCorr, binned HDF5 output that
-``python -m dqmc_tpu.analysis`` reads.
+engine (the wrap/site-loop kernels) or the per-slice engine (the delayed,
+submatrix and rank-1 site-update kernels), with the CGS2 QR kernel for
+float32 stabilization on CUDA and plain twins on the CPU; float32 or
+float64, equal-time measurement of density, doubleOcc, swave and
+densityCorr, binned HDF5 output that ``python -m dqmc_tpu.analysis``
+reads.
+
+``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
+when it supports the model (ns <= 512, dense kinetics) and the per-slice
+engine otherwise, as the JAX driver does; ``fused`` and ``slice`` force
+one.  ``site_update`` (pallas / scan / delayed / submatrix, default pallas
+on CUDA and scan on the CPU) and ``delay_rank`` configure the per-slice
+engine as in the JAX package.
 
 Reads ``parameters.in`` (the JAX package's schema) from the working
 directory.  ``--device`` selects the device (``cuda`` by default; CPU runs
@@ -29,7 +38,7 @@ from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
 from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
 from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
                                          rebuild_stack_and_greens,
-                                         reset_error_stats)
+                                         reset_error_stats, sweep_pair)
 from dqmc_tpu_torch.lattice import make_lattice
 from dqmc_tpu_torch.measure.manager import MeasurementManager
 from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard
@@ -63,8 +72,6 @@ def _unported(params: Parameters):
              "slice 2, engine/uneqtime.py and observables"),
             (get_b("simulation", "measure_charge", False), "measure_charge",
              "slice 2, engine/uneqtime.py and observables"),
-            (get_s("simulation", "engine", "auto") not in ("auto", "fused"),
-             "engine = slice", "the slice engine and kernels #3-#6"),
             (get_s("simulation", "fused_update", "delayed") != "delayed",
              "fused_update = submatrix", "Pallas kernels to port, #2c"),
             (get_s("simulation", "wrap_precision", "highest") != "highest",
@@ -98,6 +105,48 @@ def _parse_n_stab(params: Parameters):
     if raw == "auto":
         return params.get_int("simulation", "n_stab_start", 5), True
     return params.get_int("simulation", "n_stab"), False
+
+
+def make_engine_config(params: Parameters, device: torch.device,
+                       n_stab: int) -> EngineConfig:
+    """EngineConfig from the [simulation] section (run.py:112-143 of the
+    JAX package): ``site_update`` is pallas (the default on CUDA), scan
+    (the default on the CPU), delayed or submatrix; the last two take
+    their rank from ``delay_rank`` (default 32).  ``submatrix`` takes the
+    shared-order kernel on CUDA and the per-walker-order scheme on the
+    CPU."""
+    on_cuda = device.type == "cuda"
+    impl = params.get_str("simulation", "site_update",
+                          "pallas" if on_cuda else "scan")
+    delay = params.get_int("simulation", "delay_rank", 32)
+    common = dict(nt=params.get_int("simulation", "nt"), n_stab=n_stab,
+                  fused_update=params.get_str("simulation", "fused_update",
+                                              "delayed"))
+    if impl == "pallas":
+        return EngineConfig(use_pallas=True, **common)
+    if impl == "delayed":
+        return EngineConfig(delay_rank=delay, **common)
+    if impl == "submatrix":
+        return EngineConfig(submatrix_rank=delay, use_pallas=on_cuda,
+                            **common)
+    if impl == "scan":
+        return EngineConfig(**common)
+    raise ValueError(f"[simulation] site_update {impl!r}: pallas, scan, "
+                     f"delayed or submatrix")
+
+
+def use_fused_engine(params: Parameters, model, device: torch.device,
+                     dtype) -> bool:
+    """``engine``: auto takes the fused engine when it supports the model
+    on CUDA in float32 (run.py:367-380 of the JAX package); fused and
+    slice force one."""
+    kind = params.get_str("simulation", "engine", "auto")
+    if kind == "auto":
+        return (supports_fused(model) and device.type == "cuda"
+                and dtype == torch.float32)
+    if kind in ("fused", "slice"):
+        return kind == "fused"
+    raise ValueError(f"[simulation] engine {kind!r}: auto, fused or slice")
 
 
 @dataclasses.dataclass
@@ -168,16 +217,20 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         lat.save_info(os.path.join(out_dir, "info"))
     model = AttractiveHubbard.from_params(params, lat, dtype=dtype,
                                           device=device)
-    if not supports_fused(model):
-        raise NotImplementedError(
-            f"ns = {model.n_sites} > 512 needs the per-slice engine "
-            f"(ROADMAP: the slice engine and kernels #3-#6)")
-    cfg = EngineConfig(nt=nt, n_stab=n_stab)
+    cfg = make_engine_config(params, device, n_stab)
+    fused = use_fused_engine(params, model, device, dtype)
+    step = sweep_pair_fused if fused else sweep_pair
     log(f"Standard DQMC run: {lat.L1}x{lat.L2} lattice, "
         f"beta={float(model.beta)}, nt={nt}, {n_walkers} walkers, "
         f"dtype={str(dtype).replace('torch.', '')}, device={device}")
-    log("Engine: fused block (wrap + site-loop kernels, CGS2 QR "
-        "stabilization)")
+    if fused:
+        log("Engine: fused block (wrap + site-loop kernels)")
+    else:
+        scheme = ("submatrix" if cfg.submatrix_rank else
+                  "delayed" if cfg.use_pallas or cfg.delay_rank else "rank-1")
+        order = "shared" if cfg.use_pallas else "per-walker"
+        log(f"Engine: per slice ({scheme} site update, {order} visit "
+            f"order)")
 
     states = init_state(model, cfg, make_generators(seed, n_walkers, device))
     manager = MeasurementManager(lat, n_walkers=n_walkers, out_dir=out_dir,
@@ -228,7 +281,7 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
 
     t0 = time.perf_counter()
     for it in range(n_therms):
-        states = sweep_pair_fused(model, cfg, states)
+        states = step(model, cfg, states)
         if (it + 1) in adapt_marks:
             states, cfg = adapt(states, cfg)
     _sync(device)
@@ -246,7 +299,7 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     for ibin in range(n_bins):
         acc = manager.zero_acc(states.G)
         for _ in range(n_sweeps):
-            states = sweep_pair_fused(model, cfg, states)
+            states = step(model, cfg, states)
             G = half_warp(model, states.G) if symmetric else states.G
             for key, v in manager.increments(G).items():
                 acc[key] += v

@@ -1,4 +1,5 @@
-"""dqmc_tpu_torch's CUDA kernels against their plain twins, on the card.
+"""dqmc_tpu_torch's CUDA kernels (K1, K2 and the site updates #3, #5,
+#6) against their plain twins, on the card.
 
 Marked ``cuda``; skips where torch.cuda.is_available() is false.  The
 repository's conftest imports jax, which the card machine need not have,
@@ -79,3 +80,45 @@ def test_kernel_wrappers_check_their_inputs(gen):
         fused.wrap_gemm_cuda(A, A.double())
     with pytest.raises(ValueError):
         fused.wrap_gemm_cuda(A, A.mT)       # not contiguous
+
+
+# (scheme, wrapper, rank keyword, kernels it launches)
+SITE_SCHEMES = {
+    "rank1": ("metropolis_slice_update", None, ("rank1_sites",)),
+    "delayed": ("metropolis_slice_update_batched", "k_delay",
+                ("delayed_sites", "delayed_flush")),
+    "submatrix": ("metropolis_slice_update_submatrix", "k_sub",
+                  ("submatrix_decide", "submatrix_prep", "submatrix_flush")),
+}
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("scheme", list(SITE_SCHEMES))
+def test_site_update_kernels_match_twin_f64(gen, scheme, shared):
+    """#3, #5 and #6 against their twins, one slice at ns = 36 with a
+    short last block (k = 8): the same decisions and G to 1e-12."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.ops import kernels as tk
+    W, n, k = 3, 36, 8
+    f64 = dict(device="cuda", dtype=torch.float64)
+    G = (0.1 * torch.randn((W, 1, n, n), generator=gen, **f64)
+         + 0.5 * torch.eye(n, **f64))
+    fields = torch.randint(0, 4, (W, n), generator=gen, device="cuda")
+    orders = torch.argsort(torch.rand((W, n), generator=gen,
+                                      device="cuda"), dim=-1)
+    props = torch.randint(0, 3, (W, n), generator=gen, device="cuda")
+    us = torch.rand((W, n), generator=gen, **f64)
+    g = torch.tensor([0.30, 0.28, 0.32], **f64)
+    alpha = torch.full((W,), -1.0, **f64)
+    name, rank_kw, launched = SITE_SCHEMES[scheme]
+    fn = getattr(tk, name)
+    kw = {rank_kw: k, "exact_rank": True} if rank_kw else {}
+    args = (g, alpha, orders[0] if shared else orders, props, us, G, fields)
+    before = dict(_cuda.LAUNCHES)
+    Gk, fk, ak = fn(*args, **kw)
+    assert all(_cuda.LAUNCHES[x] > before[x] for x in launched)
+    Gp, fp, ap = fn(*args, plain=True, **kw)
+    assert torch.equal(fk, fp)
+    assert torch.equal(ak, ap)
+    assert 0.0 < float(ak.mean()) < 1.0
+    assert float((Gk - Gp).abs().max() / Gp.abs().max()) < 1e-12

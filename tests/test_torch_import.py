@@ -1,4 +1,5 @@
-"""dqmc_tpu_torch imports without a CUDA toolchain and never imports jax;
+"""dqmc_tpu_torch imports without a CUDA toolchain and never imports jax
+or anything of the JAX package dqmc_tpu;
 configurations outside the ported slice raise instead of being ignored;
 a CUDA request without a CUDA device raises instead of falling back."""
 
@@ -25,6 +26,9 @@ for name in names:
     importlib.import_module(name)
 assert 'jax' not in sys.modules, 'jax was imported'
 assert 'triton' not in sys.modules, 'triton was imported'
+reached = [m for m in sys.modules
+           if m == 'dqmc_tpu' or m.startswith('dqmc_tpu.')]
+assert not reached, f'the JAX package was imported: {reached}'
 print(len(names))
 """
 
@@ -66,7 +70,7 @@ n_stab = 4
     ("hubbard", "checkerboard", "true"),
     ("simulation", "measure_spin", "true"),
     ("simulation", "measure_charge", "true"),
-    ("simulation", "engine", "slice"),
+    ("simulation", "wrap_precision", "default"),
     ("simulation", "fused_update", "submatrix"),
 ])
 def test_unported_configuration_raises(tmp_path, section, key, value):
@@ -123,6 +127,10 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_kernel_sources_are_listed():
     from dqmc_tpu_torch import _cuda
     names = [p.name for p in _cuda.sources()]
-    assert names == ["cgs2_qr.cu", "fused_block.cu"]
+    assert names == ["cgs2_qr.cu", "fused_block.cu", "site_update.cu",
+                     "submatrix_update.cu"]
     assert _cuda.library_path().parent == _cuda.BUILD_DIR
-    assert set(_cuda.LAUNCHES) == {"cgs2_qr", "fused_wrap", "fused_sites"}
+    assert set(_cuda.LAUNCHES) == {
+        "cgs2_qr", "fused_wrap", "fused_sites", "delayed_sites",
+        "delayed_flush", "rank1_sites", "submatrix_decide", "submatrix_prep",
+        "submatrix_flush"}

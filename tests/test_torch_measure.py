@@ -135,6 +135,28 @@ def test_cli_output_values(runs):
     assert np.isfinite(corr).all()
 
 
+@pytest.mark.parametrize("site_update", ["pallas", "scan", "delayed",
+                                         "submatrix"])
+def test_cli_slice_engine_layout_matches_jax(runs, tmp_path, site_update):
+    """engine = slice with each site update writes the JAX package's HDF5
+    layout (the JAX run above takes its per-slice engine on the CPU)."""
+    jdir = runs[0]
+    params = Parameters.from_string(_PARAMS)
+    for key, value in (("engine", "slice"), ("site_update", site_update),
+                       ("delay_rank", 4)):
+        params.set("simulation", key, value)
+    (tmp_path / "parameters.in").write_text(params.dumps())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-m", "dqmc_tpu_torch",
+                          "--device", "cpu"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "Engine: per slice" in res.stdout
+    for w in range(2):
+        name = f"results/data_{w}.h5"
+        assert _layout(tmp_path / name) == _layout(jdir / name)
+
+
 def test_analysis_reads_port_output(runs):
     _, tdir, _ = runs
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -89,3 +89,36 @@ def test_cgs2_kernel_wrapper_rejects_bad_shapes():
         tqr._cgs2_qr_cuda(torch.zeros((1, 40, 40)), False)
     with pytest.raises(ValueError, match="square"):
         tqr.cgs2_qr(torch.zeros((2, 4, 5)))
+
+
+def test_cgs2_twin_padded_above_512(rng):
+    """n = 520 pads to 544, past the old 512 limit (the kernel now takes
+    n <= 1024 in float32): reconstruction, orthogonality, a non-negative
+    diagonal, and R equal to Householder's after its sign fix."""
+    n = 520
+    A = rng.standard_normal((1, n, n))
+    Q, R = tqr.cgs2_qr(torch.as_tensor(A))
+    Q, R = to_np(Q), to_np(R)
+    assert Q.shape == R.shape == (1, n, n)
+    np.testing.assert_allclose(Q @ R, A, atol=1e-10)
+    np.testing.assert_allclose(Q.swapaxes(-1, -2) @ Q, np.eye(n)[None],
+                               atol=1e-10)
+    assert np.abs(np.tril(R, -1)).max() == 0.0
+    assert (np.diagonal(R, axis1=-2, axis2=-1) >= 0).all()
+    Rh = np.linalg.qr(A[0])[1]
+    Rh = np.sign(np.diagonal(Rh))[:, None] * Rh
+    np.testing.assert_allclose(R[0], Rh, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,n,ok", [(torch.float32, 1024, True),
+                                        (torch.float32, 1056, False),
+                                        (torch.float64, 512, True),
+                                        (torch.float64, 544, False)])
+def test_cgs2_kernel_size_limit_by_dtype(dtype, n, ok):
+    """The kernel stages a 32-row panel in shared memory: n <= 1024 in
+    float32, n <= 512 in float64.  Sizes inside the limit pass the shape
+    check and stop at the device check on a CPU tensor."""
+    A = torch.zeros((1, n, n), dtype=dtype)
+    with pytest.raises(ValueError,
+                       match="takes CUDA tensors" if ok else "<= "):
+        tqr._cgs2_qr_cuda(A, False)

@@ -51,3 +51,27 @@ def jax_sweep_streams(keys, nt, ns, dtype):
 def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def jax_slice_streams(keys, ns, dtype):
+    """(orders, props, us), each (W, ns) numpy, as draw_slice_randoms
+    draws them from per-walker slice keys (W,)."""
+    out = jax.vmap(lambda k: draw_slice_randoms(k, ns, dtype))(keys)
+    return tuple(np.asarray(x) for x in out)
+
+
+def jax_per_slice_streams(keys, nt, ns, dtype, forward):
+    """The streams JAX's per-slice ``sweep`` draws from per-walker keys
+    (W,): each processed slice splits ``key, k_slice = split(key)``
+    (sweep.py:519).  Returns ((orders, props, us) numpy, each (W, nt, ns)
+    indexed by slice, next keys)."""
+    W = keys.shape[0]
+    out = [np.zeros((W, nt, ns), np.int64), np.zeros((W, nt, ns), np.int64),
+           np.zeros((W, nt, ns), np.dtype(dtype))]
+    split = jax.vmap(jax.random.split)
+    for l in (range(nt) if forward else range(nt - 1, -1, -1)):
+        pair = split(keys)
+        keys, k_slice = pair[:, 0], pair[:, 1]
+        for arr, x in zip(out, jax_slice_streams(k_slice, ns, dtype)):
+            arr[:, l] = x
+    return tuple(out), keys
