@@ -3,8 +3,9 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py                 # every phase (about 7 minutes)
+    python3 chip_smoke.py                 # every phase (8 to 9 minutes)
     python3 chip_smoke.py --phases 1,6    # a subset, for iterating
+    python3 chip_smoke.py --registers     # ptxas registers per kernel
 
 Phases (each prints lines starting "phase N"; the first failed check exits
 non-zero):
@@ -34,13 +35,29 @@ non-zero):
    with site_update = submatrix (#5);
 8. examples/basic through the per-slice engine with site_update = scan
    (#6) and delayed (#3);
-9. the first stretch sweep pair per site update (#3, #5) under
-   torch.profiler: device time by kernel and the device's idle share.
+9. under torch.profiler, device time by kernel and the device's idle
+   share: the first stretch sweep pair with the default site update (#3),
+   and three pairs of the repulsive preset on each engine;
+10. the 2-flavor and submatrix kernels against their twins: #4 (the
+    per-slice 2-flavor delayed update) one slice at (W=4, ns=36, k=4), the
+    repulsive preset's (32, 64, 32) and (4, 1024, 32); #2b (the fused block
+    with two flavors) forward and backward at the preset's (32, 64, 5
+    slices) and (16, 256, 5); #2c (the fused block's submatrix scheme) at
+    (4, 36) and (16, 256); doped cases of #4 and #2b (U=6, mu=-0.8) must
+    flip a sign; each new kernel timed alone, and the fused site loops
+    with one and two flavors, 1 and 16 walkers, both float types;
+11. the repulsive preset (8x8, beta=4, nt=80, n_stab=5, U=4, mu=0, W=32,
+    float32) through run_simulation with engine = auto (fused: #2b + K1)
+    and engine = slice (#4 + K1): every walker's sign must stay +1; then a
+    doped run (U=6, mu=-0.8) that prints the mean sign;
+12. the headline shape with model = repulsive, three timed sweep pairs on
+    the fused engine;
+13. examples/basic with fused_update = submatrix (#2c) on the fused engine.
 
-Every phase that drives a main path (4, 5, 7, 8) sets the launch counters
-to 0 just before and reads them just after.  The line before the last is
-one JSON object describing every kernel; the last line is the result
-object.  Tolerances are stated where they are checked.
+Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13) sets the
+launch counters to 0 just before and reads them just after.  The line
+before the last is one JSON object describing every kernel; the last line
+is the result object.  Tolerances are stated where they are checked.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -57,11 +75,15 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# examples/basic (ns = 36) and the bench headline (ns = 256) shapes
-QR_SHAPES = ((16, 256), (4, 36))
+# the bench headline (ns = 256), examples/basic (ns = 36) and the repulsive
+# preset (2 W = 64 matrices of ns = 64)
+QR_SHAPES = ((16, 256), (4, 36), (64, 64))
 BLOCK_SHAPES = ((4, 6, 4.0, 40, 10), (16, 16, 8.0, 160, 5))  # W L beta nt n
 # the per-slice engine's site-update shapes: (W, L, k)
 SITE_SHAPES = ((4, 6, 4), (4, 32, 32))
+# #4's shapes: those, and the repulsive preset's (W=32, 8x8, two blocks of
+# 32 visits, one column per thread)
+SITE_SHAPES_2F = ((4, 6, 4), (32, 8, 32), (4, 32, 32))
 
 # the card's peaks (NVIDIA H100 SXM data sheet): FP32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -128,12 +150,16 @@ def graded(gen, B, n, dtype, spread=12.0):
 
 def phase_qr(torch, gen, report):
     from dqmc_tpu_torch.ops import qr_kernel as qk
+    # the preset's case draws from a generator of its own, so the inputs of
+    # the cases and phases after it do not move
+    own = torch.Generator(device="cuda")
+    own.manual_seed(64)
     # f64: kernel and twin run the same algorithm in another summation
     # order; Q and R agree to 1e-12 absolute, R^{-1} to 1e-12 relative to
     # its largest entry (its scale grows with cond(A))
     for B, n in QR_SHAPES:
-        A = torch.randn((B, n, n), generator=gen, device="cuda",
-                        dtype=torch.float64)
+        A = torch.randn((B, n, n), generator=gen if n != 64 else own,
+                        device="cuda", dtype=torch.float64)
         got = qk.cgs2_qr_inv(A)
         want = qk.padded_qr(A, True, qk.cgs2_qr_plain)
         torch.cuda.synchronize()
@@ -190,16 +216,17 @@ def qr_quality(torch, qk, A):
         fail(f"K1 f32 factorization quality at n = {n}")
 
 
-def block_inputs(torch, gen, W, L, beta, nt, n_slices, dtype):
+def block_inputs(torch, gen, W, L, beta, nt, n_slices, dtype,
+                 model="attractive", U=4.0, mu=-0.1, seed=11):
     from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
     from dqmc_tpu_torch.engine.sweep import init_state
     from dqmc_tpu_torch.lattice import square_lattice
-    from dqmc_tpu_torch.models import AttractiveHubbard
-    model = AttractiveHubbard.build(square_lattice(L, L), U=4.0, t=1.0,
-                                    mu=-0.1, beta=beta, nt=nt, dtype=dtype,
-                                    device="cuda")
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
+    model = MODEL_REGISTRY[model].build(square_lattice(L, L), U=U, t=1.0,
+                                        mu=mu, beta=beta, nt=nt, dtype=dtype,
+                                        device="cuda")
     cfg = EngineConfig(nt=nt, n_stab=n_slices)
-    states = init_state(model, cfg, make_generators(11, W, "cuda"))
+    states = init_state(model, cfg, make_generators(seed, W, "cuda"))
     ns = model.n_sites
     order = torch.argsort(torch.rand((n_slices, ns), generator=gen,
                                      device="cuda"), dim=-1)
@@ -694,47 +721,654 @@ def phase_basic_slice(torch):
                ("delayed_sites", "delayed_flush", "cgs2_qr"), "phase 8")
 
 
-def phase_profile(torch):
-    """The first stretch sweep pair per site update (#3, #5) under
-    torch.profiler (every kernel is built and warm from the phases
-    before): device time by kernel, and the device's idle share of the
-    pair's wall time."""
+def _profiled(torch, label, step, states, n_pairs):
+    """``n_pairs`` sweep pairs under torch.profiler: device time by kernel
+    and the device's idle share of their wall time."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_pairs):
+            states = step(states)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    # device-side rows only (kernels and copies), so nothing counts
+    # twice through the CPU op that launched it
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and dev(e) > 0), key=dev, reverse=True)
+    busy = sum(dev(e) for e in rows) / 1e6
+    say(f"phase 9: {label}, {n_pairs} profiled sweep pair(s): wall "
+        f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1.0 - busy / wall:.4f}")
+    for e in rows[:8]:
+        say(f"phase 9:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
+            f"({dev(e) / 1e6 / busy:6.1%}) {e.count} calls")
+
+
+def phase_profile(torch):
+    """Where the time goes, under torch.profiler (every kernel is built and
+    warm from the phases before): the first stretch sweep pair with the
+    default site update (#3), and three pairs of the repulsive preset on
+    each engine (fused: #2b; per slice: #4) after a warm-up pair."""
     from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.engine.fused import sweep_pair_fused
     from dqmc_tpu_torch.engine.state import make_generators
     from dqmc_tpu_torch.engine.sweep import init_state, sweep_pair
     from dqmc_tpu_torch.lattice import square_lattice
-    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
     from dqmc_tpu_torch.run import make_engine_config
-    for site_update in ("pallas", "submatrix"):
-        params = Parameters.from_string(
-            STRETCH + f"[simulation]\nsite_update = {site_update}\n")
-        model = AttractiveHubbard.from_params(
-            params, square_lattice(32, 32), dtype=torch.float32,
-            device="cuda")
-        cfg = make_engine_config(params, torch.device("cuda"), 5)
-        states = init_state(model, cfg, make_generators(42, 4, "cuda"))
+    dev = torch.device("cuda")
+    params = Parameters.from_string(STRETCH)
+    model = MODEL_REGISTRY["attractive"].from_params(
+        params, square_lattice(32, 32), dtype=torch.float32, device=dev)
+    cfg = make_engine_config(params, dev, 5)
+    states = init_state(model, cfg, make_generators(42, 4, dev))
+    _profiled(torch, "stretch, site_update = pallas (#3)",
+              lambda s: sweep_pair(model, cfg, s), states, 1)
+    params = Parameters.from_string(REPULSIVE)
+    model = MODEL_REGISTRY["repulsive"].from_params(
+        params, square_lattice(8, 8), dtype=torch.float32, device=dev)
+    cfg = make_engine_config(params, dev, 5)
+    for label, step in (("fused (#2b)", sweep_pair_fused),
+                        ("per slice (#4)", sweep_pair)):
+        states = init_state(model, cfg, make_generators(42, 32, dev))
+        states = step(model, cfg, states)              # warm-up pair
+        _profiled(torch, f"repulsive preset, {label}",
+                  lambda s: step(model, cfg, s), states, 3)
+
+
+def _flipping_seed(torch, make, run_twin, what):
+    """The first of a few seeds whose doped inputs make the twin flip a
+    sign, with those inputs and the twin's result; fails if none does (the
+    sign path would go unexercised)."""
+    for seed in range(8):
+        inputs = make(seed)
+        out = run_twin(inputs)
+        if bool((out[-1] < 0).any()):
+            return seed, inputs, out
+    fail(f"{what}: no sign flip in 8 doped seeds")
+
+
+def phase_two_flavor_sites(torch, gen, report):
+    """#4 against its twin, one slice: physical G of the repulsive model at
+    (W=4, ns=36, k=4), the repulsive preset's shape (32, 64, 32) and the
+    stretch shape (4, 1024, 32), and doped cases (U=6, mu=-0.8 couplings on
+    a fake G, as tests/test_kernels.py) at the first two that must flip a
+    sign."""
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.engine.sweep import init_state
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import RepulsiveHubbard
+    from dqmc_tpu_torch.ops import kernels as tk
+    fn = tk.metropolis_slice_update_batched_2f
+
+    def compare(tag, args, kw, dtype, want=None):
+        Gk, fk, ak, sk = fn(*args, **kw)
+        Gp, fp, ap, sp = want or fn(*args, plain=True, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            states = sweep_pair(model, cfg, states)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev = lambda e: getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0))
-        # device-side rows only (kernels and copies), so nothing counts
-        # twice through the CPU op that launched it
-        rows = sorted((e for e in prof.key_averages()
-                       if str(getattr(e, "device_type", "")).endswith("CUDA")
-                       and dev(e) > 0), key=dev, reverse=True)
-        busy = sum(dev(e) for e in rows) / 1e6
-        say(f"phase 9: stretch site_update = {site_update}, one profiled "
-            f"sweep pair: wall {wall:.2f} s, device busy {busy:.2f} s, "
-            f"idle share {1.0 - busy / wall:.4f}")
-        for e in rows[:8]:
-            say(f"phase 9:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
-                f"({dev(e) / 1e6 / busy:6.1%}) {e.count} calls")
+        ns = Gp.shape[-1]
+        mism = int((fk != fp).sum())
+        smis = int((sk != sp).sum())
+        rel = float((Gk - Gp).abs().max() / Gp.abs().max())
+        flips = int((sp < 0).sum())
+        accepted = int((ap * ns).round().sum())
+        if dtype == torch.float64:
+            # one slice, no propagation: the same decisions and signs, G
+            # to 1e-9 of its largest entry
+            say(f"{tag}: {accepted} of {fp.numel()} accepted, {flips} "
+                f"walkers flipped, mismatched fields {mism}, signs {smis}, "
+                f"|dG|/max|G| {rel:.3e} (< 1e-9)")
+            if mism or smis or not rel < 1e-9:
+                fail(f"{tag}: #4 disagrees with its twin (f64)")
+        else:
+            say(f"{tag}: {accepted} of {fp.numel()} accepted, {flips} "
+                f"walkers flipped, mismatched decisions {mism}, signs "
+                f"{smis}, G relative gap {rel:.3e}")
+            # two correct f32 arithmetics may flip a marginal decision
+            if mism > 0.01 * fk.numel():
+                fail(f"{tag}: #4 f32 decisions disagree with the twin")
+        return float((Gk - Gp).abs().max())
+
+    slice_err = None
+    for W, L, k in SITE_SHAPES_2F:
+        ns = L * L
+        for dtype in (torch.float64, torch.float32):
+            model = RepulsiveHubbard.build(
+                square_lattice(L, L), U=4.0, t=1.0, mu=0.0, beta=1.0, nt=20,
+                dtype=dtype, device="cuda")
+            states = init_state(model, EngineConfig(nt=20, n_stab=5),
+                                make_generators(5, W, "cuda"))
+            order = torch.argsort(torch.rand((ns,), generator=gen,
+                                             device="cuda"))
+            props = torch.randint(0, 3, (W, ns), generator=gen,
+                                  device="cuda")
+            us = torch.rand((W, ns), generator=gen, device="cuda",
+                            dtype=dtype)
+            args = (model.g.expand(W), model.alpha.expand(W), order, props,
+                    us, states.G, states.fields[:, 0])
+            err = compare(f"phase 10: #4 {str(dtype)[6:]} W={W} ns={ns} "
+                          f"k={k} mu=0", args, dict(k_delay=k), dtype)
+            if dtype == torch.float64 and ns == SITE_SHAPES_2F[-1][1] ** 2:
+                slice_err = err
+    # the sign path: doped couplings (g of U=6, dtau=0.25) on a fake G
+    for W, L, k in SITE_SHAPES_2F[:2]:
+        ns = L * L
+        for dtype in (torch.float64, torch.float32):
+            def make(seed):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(100 + seed)
+                kw = dict(generator=g, device="cuda")
+                G = (0.3 * torch.randn((W, 2, ns, ns), dtype=dtype, **kw)
+                     + 0.5 * torch.eye(ns, dtype=dtype, device="cuda"))
+                return (torch.full((W,), 0.75 ** 0.5, dtype=dtype,
+                                   device="cuda"),
+                        torch.zeros((W,), dtype=dtype, device="cuda"),
+                        torch.argsort(torch.rand((ns,), **kw)),
+                        torch.randint(0, 3, (W, ns), **kw),
+                        torch.rand((W, ns), dtype=dtype, **kw), G,
+                        torch.randint(0, 4, (W, ns), **kw))
+            seed, args, want = _flipping_seed(
+                torch, make, lambda a: fn(*a, plain=True, k_delay=k),
+                "#4 doped")
+            compare(f"phase 10: #4 {str(dtype)[6:]} W={W} ns={ns} k={k} "
+                    f"doped fake G (seed {seed})", args, dict(k_delay=k),
+                    dtype, want)
+
+    # one launch of 32 visits at the stretch shape, f32, both flavors
+    W, L, k = SITE_SHAPES[-1]
+    n = L * L
+    dt = torch.float32
+    model = RepulsiveHubbard.build(square_lattice(L, L), U=4.0, t=1.0,
+                                   mu=0.0, beta=1.0, nt=20, dtype=dt,
+                                   device="cuda")
+    states = init_state(model, EngineConfig(nt=20, n_stab=5),
+                        make_generators(5, W, "cuda"))
+    order = torch.argsort(torch.rand((n,), generator=gen, device="cuda")
+                          ).to(torch.int32)
+    props = torch.randint(0, 3, (W, n), generator=gen, device="cuda")
+    us = torch.rand((W, n), generator=gen, device="cuda", dtype=dt)
+    _, gb, delta = tk.visit_factors(
+        model.g.expand(W), model.alpha.expand(W), states.fields[:, 0],
+        order.long().expand(W, n), props, dt, 2)
+    gb, delta = gb.contiguous(), delta.contiguous()
+    G = states.G.contiguous()
+    U = torch.zeros((W, 2, k, n), dtype=dt, device="cuda")
+    V = torch.zeros_like(U)
+    acc = torch.empty((W, n), dtype=dt, device="cuda")
+    sgn = torch.ones((W,), dtype=dt, device="cuda")
+    blk = (acc, order, gb, delta, us, 0, k, sgn)
+    K, P = tk.KERNELS, tk.PLAIN
+    ms = cuda_ms(lambda: K.delayed_block(G, U, V, *blk), 5)
+    plain_ms = cuda_ms(lambda: P.delayed_block(G, U.clone(), V.clone(),
+                                               *blk), 1)
+    record(report, "delayed_sites_2f", max_abs_err=slice_err, ms=ms,
+           plain_ms=plain_ms, ops=W * 2 * 2 * n * k * (k - 1),
+           nbytes=4 * W * (8 * k * n + 6 * k))
+    Gw = G.clone()
+    fms = cuda_ms(lambda: K.delayed_flush(Gw, U, V, k), 5)
+    lib = cuda_ms(lambda: Gw.view(2 * W, n, n).baddbmm_(
+        U.view(2 * W, k, n).mT, V.view(2 * W, k, n)), 5)
+    r = report["delayed_sites_2f"]
+    say(f"phase 10: delayed_sites_2f f32 W={W} ns={n} k={k}, one launch: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, no single library "
+        f"call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); its flush "
+        f"over 2W matrices (delayed_flush) {fms:.4f} ms, one torch.baddbmm "
+        f"{lib:.4f} ms")
+
+
+# W, L, beta, nt, n_slices of the fused 2-flavor and submatrix checks
+# (#2b: the repulsive preset's block, then the headline shape)
+BLOCK_SHAPES_2F = ((32, 8, 4.0, 80, 5), (16, 16, 8.0, 160, 5))
+BLOCK_SHAPES_SUB = ((4, 6, 4.0, 40, 5), (16, 16, 8.0, 160, 5))
+
+
+def _diverged(torch, fa, fb, forward):
+    """Decisions (W, n_slices, ns) of two runs of one block: the mismatches
+    per slice in processing order, and per walker the first slice (as
+    processed) with a mismatch, n_slices where it has none."""
+    mm = fa != fb
+    if not forward:
+        mm = mm.flip(1)
+    hit = mm.any(dim=2)
+    n = hit.shape[1]
+    first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1), n)
+    return mm.sum(dim=(0, 2)).tolist(), first
+
+
+def _hold_block(torch, fused, tag, args, kw, dtype, want=None,
+                f32_walkers=0.0, exact=None):
+    """fused_block (kernels) against fused_block_plain on the card, at
+    phase 3's tolerances; returns the G gap.  In float32 at most 1% of the
+    decisions may differ, or (doped inputs) the decisions of a share
+    ``f32_walkers`` of the walkers, and no walker's in the first half of
+    the block's slices.  ``exact`` is the float64 twin's decisions on the
+    same inputs: how far float32 rounding alone takes the float32 twin from
+    them is printed beside the kernel's gap."""
+    Gk, fk, bk, ak, sk = fused.fused_block(*args, **kw)
+    Gp, fp, bp, ap, sp = want or fused.fused_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    mism = int((fk != fp).sum())
+    smis = int((sk != sp).sum())
+    dG = float((Gk - Gp).abs().max())
+    dB = float((bk - bp).abs().max() / max(1.0, bp.abs().max()))
+    flips = int((sp < 0).sum())
+    if dtype == torch.float64:
+        # decisions and signs identical; Bbar to 1e-11 relative to
+        # max(1, |Bbar|); G to 1e-6 (naive propagation over the block
+        # amplifies reordered rounding, as in phase 3)
+        say(f"{tag}: mismatched decisions {mism}, signs {smis}, {flips} "
+            f"walkers flipped, |dG| {dG:.3e} (< 1e-6), |dBbar| {dB:.3e} "
+            f"(< 1e-11)")
+        if mism or smis or not (dG < 1e-6 and dB < 1e-11):
+            fail(f"{tag}: the block disagrees with its twin (f64)")
+        return dG
+    W, n = fk.shape[:2]
+    per_slice, first = _diverged(torch, fk, fp, kw["forward"])
+    left = first < n
+    n_left = int(left.sum())
+    # G of the walkers whose decisions all agree, against its largest entry
+    same = (Gk - Gp)[~left]
+    rel = float(same.abs().max() / Gp.abs().max()) if len(same) else 0.0
+    line = (f"{tag}: mismatched decisions {mism} of {fk.numel()} (by slice "
+            f"as processed: {per_slice}) in {n_left} of {W} walkers, signs "
+            f"{smis}, {flips} walkers flipped, G relative gap of the other "
+            f"walkers {rel:.3e}")
+    if exact is not None:
+        _, first_x = _diverged(torch, fp, exact, kw["forward"])
+        line += (f"; the float32 twin leaves the float64 twin in "
+                 f"{int((first_x < n).sum())} of {W} walkers (first at slice "
+                 f"{int(first_x.min())})")
+    say(line)
+    # two correct f32 arithmetics diverge along a block (phase 3): a walker
+    # whose rounding flipped one marginal decision late in the block differs
+    # in about half of its later ones.  A broken kernel differs in every
+    # walker from the first slice on.
+    if n_left and int(first.min()) < n // 2:
+        fail(f"{tag}: f32 decisions differ in the first half of the block")
+    if mism > 0.01 * fk.numel() and n_left > f32_walkers * W:
+        fail(f"{tag}: f32 decisions disagree with the twin")
+    return dG
+
+
+def phase_two_flavor_block(torch, gen, report):
+    """#2b: the fused block with two flavors, forward and backward, at
+    half filling and (the preset's shape) doped with a sign flip
+    required."""
+    from dqmc_tpu_torch.engine import fused
+    for W, L, beta, nt, n in BLOCK_SHAPES_2F:
+        ns = L * L
+        for dtype in (torch.float64, torch.float32):
+            need = fused.site_loop_smem(ns, 8 if dtype == torch.float64
+                                        else 4, 2)
+            if need > fused._SMEM_BYTES:
+                # both flavors' U/V of a walker stay in one CTA: float64 at
+                # ns = 256 is outside the kernel's shapes (supports_fused
+                # says so and the per-slice engine serves it)
+                say(f"phase 10: #2b {str(dtype)[6:]} W={W} ns={ns}: {need} "
+                    f"bytes of U/V exceed one CTA's {fused._SMEM_BYTES}; "
+                    f"not a shape of the kernel, skipped")
+                continue
+            model, states, order, props, us = block_inputs(
+                torch, gen, W, L, beta, nt, n, dtype, "repulsive", 4.0, 0.0)
+            for forward in (True, False):
+                fb = states.fields[:, :n] if forward else states.fields[:, -n:]
+                _hold_block(
+                    torch, fused,
+                    f"phase 10: #2b {str(dtype)[6:]} W={W} ns={ns} "
+                    f"n_slices={n} k={fused._k_delay(ns)} mu=0 "
+                    f"{'fwd' if forward else 'bwd'}",
+                    (model, order, props, us, states.G, fb),
+                    dict(n_slices=n, forward=forward), dtype)
+    # doped, physical G: U=6, mu=-0.8 on the 8x8 lattice
+    W, L, beta, nt, n = BLOCK_SHAPES_2F[0]
+    for dtype in (torch.float64, torch.float32):
+        for forward in (True, False):
+            def make(seed):
+                model, states, order, props, us = block_inputs(
+                    torch, gen, W, L, beta, nt, n, dtype, "repulsive", 6.0,
+                    -0.8, seed=20 + seed)
+                fb = states.fields[:, :n] if forward else states.fields[:, -n:]
+                return (model, order, props, us, states.G, fb)
+            kw = dict(n_slices=n, forward=forward)
+            seed, args, want = _flipping_seed(
+                torch, make, lambda a: fused.fused_block_plain(*a, **kw),
+                "#2b doped")
+            exact = None
+            if dtype == torch.float32:
+                # the same walkers and streams through the float64 twin:
+                # what float32 rounding alone does to the decisions
+                m64, s64 = block_inputs(torch, gen, W, L, beta, nt, n,
+                                        torch.float64, "repulsive", 6.0,
+                                        -0.8, seed=20 + seed)[:2]
+                fb = s64.fields[:, :n] if forward else s64.fields[:, -n:]
+                if not torch.equal(fb, args[5]):
+                    fail("#2b doped: the float64 walkers start elsewhere")
+                exact = fused.fused_block_plain(
+                    m64, args[1], args[2], args[3].double(), s64.G, fb,
+                    **kw)[1]
+            # doped: an accepted move with R < 0 has a small |r|, and its
+            # prefac = delta / r amplifies rounding by 1/|r|, so a walker
+            # can leave the twin late in the block; at most an eighth of
+            # the walkers may
+            _hold_block(torch, fused,
+                        f"phase 10: #2b {str(dtype)[6:]} W={W} ns={L * L} "
+                        f"doped U=6 mu=-0.8 (seed {seed}) "
+                        f"{'fwd' if forward else 'bwd'}", args, kw, dtype,
+                        want, f32_walkers=0.125, exact=exact)
+    # the 2-flavor site loop alone, one slice: checked in float64 at the
+    # small shape (the headline shape's float64 buffers do not fit), timed
+    # in float32 at the headline shape
+    for dtype, shape in ((torch.float64, BLOCK_SHAPES_2F[0]),
+                         (torch.float32, BLOCK_SHAPES_2F[1])):
+        W, L, beta, nt, n = shape
+        ns = L * L
+        k = fused._k_delay(ns)
+        model, states, order, props, us = block_inputs(
+            torch, gen, W, L, beta, nt, n, dtype, "repulsive", 4.0, 0.0)
+        _, _, gb, delta, _, _ = fused.site_factors(
+            model, states.fields[:, :n], props, dtype)
+        delta = delta.contiguous()
+        u_ = us.reshape(W, -1).contiguous()
+        o32 = order.to(torch.int32).contiguous()
+        G0 = states.G.contiguous()
+
+        def run_sites(fn):
+            Gc = G0.clone()
+            m = torch.zeros((W, n * ns), dtype=dtype, device="cuda")
+            sg = torch.ones((W,), dtype=dtype, device="cuda")
+            fn(Gc, m, o32, gb, delta, u_, 0, k, sg)
+            return Gc, m, sg
+        (Gs, m1, s1), (Gq, m2, s2) = run_sites(fused.site_loop_cuda), \
+            run_sites(fused.site_loop_plain)
+        torch.cuda.synchronize()
+        serr = float((Gs - Gq).abs().max())
+        smis = int((m1 != m2).sum()) + int((s1 != s2).sum())
+        if dtype == torch.float64:
+            say(f"phase 10: 2-flavor site loop f64 W={W} ns={ns} k={k} one "
+                f"slice: mismatched decisions and signs {smis}, |dG| "
+                f"{serr:.3e} (< 1e-9)")
+            if smis or not serr < 1e-9:
+                fail("2-flavor site-loop kernel disagrees with its twin")
+            site_err = serr
+            continue
+        sms = cuda_ms(lambda: run_sites(fused.site_loop_cuda), 10)
+        spms = cuda_ms(lambda: run_sites(fused.site_loop_plain), 1)
+    record(report, "fused_sites_2f", max_abs_err=site_err, ms=sms,
+           plain_ms=spms,
+           ops=2 * W * (ns // k * 2 * ns * k * (k - 1) + 2 * ns ** 3),
+           nbytes=4 * W * (4 * ns * ns + 6 * ns))
+    r = report["fused_sites_2f"]
+    say(f"phase 10: 2-flavor site loop f32 W={W} ns={ns} k={k} one slice: "
+        f"mismatched {smis}, |dG| {serr:.3e}; kernel {sms:.3f} ms, twin "
+        f"{spms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); no "
+        f"single library call")
+
+
+def phase_submatrix_block(torch, gen, report):
+    """#2c: the fused block's submatrix scheme, forward and backward."""
+    from dqmc_tpu_torch.engine import fused
+    for W, L, beta, nt, n in BLOCK_SHAPES_SUB:
+        ns = L * L
+        for dtype in (torch.float64, torch.float32):
+            model, states, order, props, us = block_inputs(
+                torch, gen, W, L, beta, nt, n, dtype)
+            for forward in (True, False):
+                fb = states.fields[:, :n] if forward else states.fields[:, -n:]
+                _hold_block(
+                    torch, fused,
+                    f"phase 10: #2c {str(dtype)[6:]} W={W} ns={ns} "
+                    f"n_slices={n} k={fused._k_delay(ns)} "
+                    f"{'fwd' if forward else 'bwd'}",
+                    (model, order, props, us, states.G, fb),
+                    dict(n_slices=n, forward=forward, update="submatrix"),
+                    dtype)
+    W, L, beta, nt, n = BLOCK_SHAPES_SUB[1]
+    ns = L * L
+    k = fused._k_delay(ns)
+    for dtype in (torch.float64, torch.float32):
+        model, states, order, props, us = block_inputs(
+            torch, gen, W, L, beta, nt, n, dtype)
+        _, _, gb, delta, _, _ = fused.site_factors(
+            model, states.fields[:, :n], props, dtype)
+        u_ = us.reshape(W, -1).contiguous()
+        o32 = order.to(torch.int32).contiguous()
+        G0 = states.G[:, 0].contiguous()
+
+        def run_sites(fn):
+            Gc = G0.clone()
+            m = torch.zeros((W, n * ns), dtype=dtype, device="cuda")
+            fn(Gc, m, o32, gb, delta, u_, 0, k)
+            return Gc, m
+        (Gs, m1), (Gq, m2) = run_sites(fused.site_loop_sub_cuda), \
+            run_sites(fused.site_loop_sub_plain)
+        torch.cuda.synchronize()
+        serr = float((Gs - Gq).abs().max())
+        smis = int((m1 != m2).sum())
+        n_acc = int(m2[:, :ns].sum())
+        if dtype == torch.float64:
+            say(f"phase 10: submatrix site loop f64 W={W} ns={ns} k={k} one "
+                f"slice: mismatched decisions {smis}, |dG| {serr:.3e} "
+                f"(< 1e-9)")
+            if smis or not serr < 1e-9:
+                fail("submatrix site-loop kernel disagrees with its twin")
+            site_err = serr
+            continue
+        sms = cuda_ms(lambda: run_sites(fused.site_loop_sub_cuda), 10)
+        spms = cuda_ms(lambda: run_sites(fused.site_loop_sub_plain), 1)
+    record(report, "fused_sites_sub", max_abs_err=site_err, ms=sms,
+           plain_ms=spms,
+           ops=W * (4 * ns * k * k + 2 * k * ns * ns + 2 * ns ** 3)
+           + 3 * k * k * n_acc,
+           nbytes=4 * W * (2 * ns * ns + 5 * ns))
+    r = report["fused_sites_sub"]
+    say(f"phase 10: submatrix site loop f32 W={W} ns={ns} k={k} one slice "
+        f"({n_acc} accepted): mismatched {smis}, |dG| {serr:.3e}; kernel "
+        f"{sms:.3f} ms, twin {spms:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); no single library call")
+
+
+# the fused site loops alone: W, ns, flavors, submatrix, float type
+LOOP_CASES = ((16, 256, 1, False, "float32"), (16, 256, 2, False, "float32"),
+              (1, 256, 2, False, "float32"), (16, 256, 1, True, "float32"),
+              (32, 64, 1, False, "float32"), (32, 64, 2, False, "float32"),
+              (16, 448, 2, False, "float32"), (16, 224, 1, False, "float64"),
+              (16, 224, 2, False, "float64"))
+
+
+def time_site_loops(torch):
+    """One slice per launch of the fused block's site loops (K2, #2b, #2c)
+    at k = 32 on synthetic inputs (G = I/2 + noise, every ratio positive):
+    one flavor against two, one walker against sixteen, both float types."""
+    from dqmc_tpu_torch.engine import fused
+    for W, ns, nfl, sub, dtype in LOOP_CASES:
+        kw = dict(device="cuda", dtype=getattr(torch, dtype))
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        shape = (W, ns, ns) if nfl == 1 else (W, 2, ns, ns)
+        G = 0.5 * torch.eye(ns, **kw) + 0.01 * torch.randn(shape,
+                                                            generator=g, **kw)
+        gb = torch.ones((W, ns), **kw)
+        delta = torch.full((W, ns) if nfl == 1 else (W, 2, ns), 0.3, **kw)
+        if nfl == 2:
+            delta[:, 1] = -0.25
+        us = torch.rand((W, ns), generator=g, **kw)
+        order = torch.argsort(torch.rand((1, ns), generator=g,
+                                         device="cuda"), dim=-1
+                              ).to(torch.int32)
+        mask = torch.zeros((W, ns), **kw)
+        sgn = torch.ones((W,), **kw) if nfl == 2 else None
+        fn = fused.site_loop_sub_cuda if sub else fused.site_loop_cuda
+        ms = cuda_ms(lambda: fn(G, mask, order, gb, delta, us, 0, 32, sgn),
+                     10)
+        say(f"phase 10: site loop alone, {'submatrix' if sub else 'delayed'}"
+            f" {dtype} W={W} ns={ns} flavors={nfl} k=32: {ms:.3f} ms per "
+            f"slice")
+
+
+def phase_new_kernels(torch, report):
+    """Phase 10, on a generator of its own: the same inputs whether or not
+    the phases before it ran."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    phase_two_flavor_sites(torch, gen, report)
+    phase_two_flavor_block(torch, gen, report)
+    phase_submatrix_block(torch, gen, report)
+    time_site_loops(torch)
+
+
+REPULSIVE = """
+[Lattice]
+L1 = 8
+L2 = 8
+[hubbard]
+model = repulsive
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 4.0
+nt = 80
+n_stab = 5
+dtype = float32
+seed = 42
+measure_spin = true
+[walkers]
+n_walkers = 32
+"""
+
+# gate on the steady float32 self-check of the repulsive preset at
+# n_stab = 5: ten times the 3.4e-2 the card measured over 40 pairs (the
+# float32 error is heavy-tailed, as on examples/basic); a broken chain reads
+# O(1)
+REPULSIVE_SELF_CHECK = 0.3
+
+
+def phase_repulsive(torch):
+    """bench.py's repulsive preset through run_simulation on both engines,
+    then a doped run."""
+    fused_need = ("cgs2_qr", "fused_wrap", "fused_sites_2f")
+    slice_need = ("cgs2_qr", "delayed_sites_2f", "delayed_flush")
+    runs = (
+        ("n_therms = 20\nn_bins = 4\nn_sweeps = 10\n", "engine = auto "
+         "(fused: #2b + K1), 20 + 4x10 pairs", fused_need),
+        ("engine = slice\nn_therms = 5\nn_bins = 2\nn_sweeps = 5\n",
+         "engine = slice (site_update = pallas: #4 + K1), 5 + 2x5 pairs",
+         slice_need))
+    for extra, label, need in runs:
+        summary = run_params(
+            torch, REPULSIVE + "[simulation]\n" + extra,
+            "repulsive 8x8 beta=4 nt=80 n_stab=5 U=4 mu=0 W=32 f32, " + label,
+            need, "phase 11")
+        signs = summary.walker_signs
+        say(f"phase 11: walker signs {sorted(set(signs))}, mean sign "
+            f"{summary.observables['sign']:.4f}, self-check max "
+            f"{summary.max_precision_error:.3e} (< "
+            f"{REPULSIVE_SELF_CHECK})")
+        if set(signs) != {1.0} or summary.observables["sign"] != 1.0:
+            fail("half filling is sign-free: every walker's sign must be +1")
+        if not summary.max_precision_error < REPULSIVE_SELF_CHECK:
+            fail("repulsive preset: steady self-check above its gate")
+    summary = run_params(
+        torch, REPULSIVE + "[hubbard]\nU = 6.0\nmu = -0.8\n[simulation]\n"
+        "n_therms = 10\nn_bins = 5\nn_sweeps = 4\n",
+        "repulsive doped U=6 mu=-0.8, engine = auto (fused), 10 + 5x4 pairs",
+        fused_need, "phase 11")
+    signs = summary.walker_signs
+    if not set(signs) <= {1.0, -1.0}:
+        fail(f"doped run: a walker's sign is not +-1: {sorted(set(signs))}")
+    mean = summary.observables["sign"]
+    say(f"phase 11: doped run: mean sign over bins {mean:.4f}, "
+        f"{sum(s < 0 for s in signs)} of {len(signs)} walkers end at -1"
+        + ("" if mean < 1.0 or min(signs) < 0 else " (no flip seen)"))
+
+
+def phase_repulsive_headline(torch, card):
+    """The headline shape with the repulsive model, three timed sweep
+    pairs on the fused engine (#2b + K1 over 2 W = 32 matrices)."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.engine.sweep import init_state, reset_error_stats
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import RepulsiveHubbard
+    W, L, beta, nt, n_stab = 16, 16, 8.0, 160, 5
+    model = RepulsiveHubbard.build(square_lattice(L, L), U=4.0, t=1.0,
+                                   mu=0.0, beta=beta, nt=nt,
+                                   dtype=torch.float32, device="cuda")
+    cfg = EngineConfig(nt=nt, n_stab=n_stab)
+    if not supports_fused(model, cfg):
+        fail("the fused engine must take the 2-flavor headline shape")
+    states = init_state(model, cfg, make_generators(42, W, "cuda"))
+    states = sweep_pair_fused(model, cfg, states)        # warm-up pair
+    states = reset_error_stats(states)
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        states = sweep_pair_fused(model, cfg, states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    TOTALS.update(_cuda.LAUNCHES)
+    launches = {k: _cuda.LAUNCHES[k]
+                for k in ("cgs2_qr", "fused_wrap", "fused_sites_2f")}
+    err = float(states.err_max.max())
+    say(f"phase 12: repulsive 16x16 beta=8 nt=160 n_stab=5 W=16 f32: "
+        f"{3 * W / dt:.3f} walker-sweep-pairs/s (3 pairs, {dt:.2f} s), "
+        f"self-check max {err:.3e}, signs "
+        f"{sorted(set(states.sign.tolist()))}, launches {launches} on "
+        f"{card}")
+    # a timing: at beta = 8 and n_stab = 5 the float32 self-check is O(10)
+    # (4.8 for the attractive headline too), so a ratio can come out
+    # negative and the signs are printed, not held to +1 as in phase 11
+    if not err == err or min(launches.values()) <= 0:
+        fail("repulsive headline sweep pairs")
+    if not set(states.sign.tolist()) <= {1.0, -1.0}:
+        fail("a walker's sign is not +-1")
+
+
+def phase_fused_submatrix(torch):
+    """examples/basic on the fused engine with fused_update = submatrix
+    (#2c), phase 4's n_stab = 2, 20 + 4x20 pairs."""
+    text = (REPO / "examples" / "basic" / "parameters.in").read_text()
+    summary = run_params(
+        torch, text + "[simulation]\nengine = fused\nfused_update = "
+        "submatrix\nn_therms = 20\nn_bins = 4\nn_sweeps = 20\nn_stab = 2\n"
+        "dtype = float32\n",
+        "examples/basic, engine = fused, fused_update = submatrix (#2c), "
+        "n_stab=2, 20 + 4x20 pairs",
+        ("cgs2_qr", "fused_wrap", "fused_sites_sub"), "phase 13")
+    if not summary.max_precision_error < 1e-2:
+        fail("fused submatrix: steady self-check above the f32 err_warn")
+
+
+def print_registers() -> None:
+    """ptxas's registers and spill bytes of every kernel instantiation,
+    from one ``nvcc -Xptxas -v`` per source with the build's flags."""
+    import re
+    from dqmc_tpu_torch import _cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in _cuda.sources():
+            out = subprocess.run(
+                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 "-o", str(Path(tmp) / (src.stem + ".o")), str(src)],
+                capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                fail(f"nvcc -Xptxas -v {src.name}: {out.stderr[-2000:]}")
+            text = out.stderr
+            if shutil.which("c++filt"):
+                text = subprocess.run(["c++filt"], input=text,
+                                      capture_output=True, text=True).stdout
+            for name, spill, regs in re.findall(
+                    r"Compiling entry function '(.*?)' for.*?(\d+) bytes "
+                    r"spill stores.*?Used (\d+) registers", text, re.S):
+                name = re.sub(r"\(anonymous namespace\)::|^void |\(.*", "",
+                              name)
+                say(f"registers: {src.name} {name}: {regs} registers, "
+                    f"{spill} bytes spilled")
 
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -744,8 +1378,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                    "dqmc_tpu/engine/fused.py:69"),
     "fused_sites": ("dqmc_tpu_torch/csrc/fused_block.cu",
                     "dqmc_tpu/engine/fused.py:69"),
+    "fused_sites_2f": ("dqmc_tpu_torch/csrc/fused_block.cu",
+                       "dqmc_tpu/engine/fused.py:69"),
+    "fused_sites_sub": ("dqmc_tpu_torch/csrc/fused_block.cu",
+                        "dqmc_tpu/engine/fused.py:288"),
     "delayed_sites": ("dqmc_tpu_torch/csrc/site_update.cu",
                       "dqmc_tpu/ops/kernels.py:121"),
+    "delayed_sites_2f": ("dqmc_tpu_torch/csrc/site_update.cu",
+                         "dqmc_tpu/ops/kernels.py:222"),
     "delayed_flush": ("dqmc_tpu_torch/csrc/site_update.cu",
                       "dqmc_tpu/ops/kernels.py:121"),
     "rank1_sites": ("dqmc_tpu_torch/csrc/site_update.cu",
@@ -757,14 +1397,18 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "submatrix_flush": ("dqmc_tpu_torch/csrc/submatrix_update.cu",
                         "dqmc_tpu/ops/kernels.py:584"),
 }
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma-separated phases to run (default: all)")
-    phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
+    ap.add_argument("--registers", action="store_true",
+                    help="print ptxas's registers and spills per kernel "
+                    "and stop")
+    opts = ap.parse_args(argv)
+    phases = {int(x) for x in opts.phases.split(",")}
     if not (REPO / "dqmc_tpu_torch").is_dir():
         fail("run chip_smoke.py from a checkout of the repository "
              "(dqmc_tpu_torch/ not found beside it)")
@@ -780,6 +1424,8 @@ def main(argv=None) -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi gave no output"
     say(card)
+    if opts.registers:
+        return print_registers()
     from dqmc_tpu_torch import _cuda
     t0 = time.perf_counter()
     lib = _cuda.build()
@@ -801,7 +1447,11 @@ def main(argv=None) -> None:
              (6, lambda: phase_sites(torch, gen, report)),
              (7, lambda: phase_stretch(torch)),
              (8, lambda: phase_basic_slice(torch)),
-             (9, lambda: phase_profile(torch)))
+             (9, lambda: phase_profile(torch)),
+             (10, lambda: phase_new_kernels(torch, report)),
+             (11, lambda: phase_repulsive(torch)),
+             (12, lambda: phase_repulsive_headline(torch, card)),
+             (13, lambda: phase_fused_submatrix(torch)))
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -35,17 +35,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset
 LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0,
-            "delayed_sites": 0, "delayed_flush": 0, "rank1_sites": 0,
-            "submatrix_decide": 0, "submatrix_prep": 0,
+            "fused_sites_2f": 0, "fused_sites_sub": 0,
+            "delayed_sites": 0, "delayed_sites_2f": 0, "delayed_flush": 0,
+            "rank1_sites": 0, "submatrix_decide": 0, "submatrix_prep": 0,
             "submatrix_flush": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SITE_LOOP = (_P, _P, _LL, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P)
+_DELAYED_SITES = (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I, _I,
+                  _I, _P)
 _SIGNATURES = {
     "dqmc_cgs2_qr": (_P, _P, _P, _P, _P, _I, _I, _P),
     "dqmc_wrap_gemm": (_P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P),
-    "dqmc_site_loop": (_P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
-    "dqmc_delayed_sites": (_P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I,
-                           _I, _I, _P),
+    "dqmc_site_loop": _SITE_LOOP,
+    "dqmc_site_loop_2f": _SITE_LOOP,
+    "dqmc_site_loop_sub": (_P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    "dqmc_delayed_sites": _DELAYED_SITES,
+    "dqmc_delayed_sites_2f": _DELAYED_SITES,
     "dqmc_delayed_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "dqmc_rank1_sites": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _P),
     "dqmc_submatrix_decide": (_P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I,

@@ -10,10 +10,10 @@
 //
 //   submatrix_decide_kernel  one warp per walker: gathers G[I, I], runs the
 //                            k sequential decisions on k x k data in shared
-//                            memory (G_II, W and the accept mask, 8 KB at
-//                            k = 32 in f32) and writes W and the accept
-//                            flags.  A rejected candidate leaves W's row and
-//                            column exactly zero.
+//                            memory (submatrix_decide.cuh: G_II, W and the
+//                            accept mask, 9 KB at k = 32 in f32) and writes
+//                            W and the accept flags.  A rejected candidate
+//                            leaves W's row and column exactly zero.
 //   submatrix_prep_kernel    over (column blocks x walkers) CTAs: the flush
 //                            operands Ut = G[:, I]^T (strided reads, no G^T
 //                            copy) and M = W (G[I, :] - E_I), both (k, n).
@@ -39,20 +39,15 @@
 #include <cuda_runtime.h>
 
 #include "rank_k_flush.cuh"
+#include "submatrix_decide.cuh"
 
 namespace {
 
 constexpr int KMAX = dqmc::FLUSH_KMAX;
 constexpr int PREP_THREADS = 128;
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// blockDim = 32 (one warp), blockIdx.x = walker; lane p owns row p of W.
+// blockDim = 32 (one warp), blockIdx.x = walker; the decisions themselves
+// are submatrix_decide.cuh's, shared with the fused block's site loop.
 template <typename T>
 __global__ void __launch_bounds__(32)
 submatrix_decide_kernel(const T* __restrict__ G, T* __restrict__ Wout,
@@ -61,69 +56,15 @@ submatrix_decide_kernel(const T* __restrict__ G, T* __restrict__ Wout,
                         const T* __restrict__ delta,
                         const T* __restrict__ us, int n, int k, int v0,
                         int cnt) {
-  __shared__ T GII[KMAX][KMAX + 1];
-  __shared__ T Wm[KMAX][KMAX + 1];
-  __shared__ T bs[KMAX], cs[KMAX], Wc_s[KMAX], bW_s[KMAX], msk[KMAX];
-  __shared__ int I[KMAX];
+  __shared__ dqmc::DecideSmem<T> sm;
   const int w = blockIdx.x, lane = threadIdx.x;
-  G += (long long)w * n * n;
-  Wout += (long long)w * k * k;
-  order += w * s_order;
   const long long ws = (long long)w * n;
-  gb += ws;
-  delta += ws;
-  us += ws;
-  acc += ws;
-
-  if (lane < cnt) I[lane] = order[v0 + lane];
-  msk[lane] = T(0);
-  for (int e = lane; e < KMAX * KMAX; e += 32) Wm[e / KMAX][e % KMAX] = T(0);
-  __syncwarp();
-  for (int e = lane; e < cnt * cnt; e += 32) {
-    const int p = e / cnt, q = e % cnt;
-    GII[p][q] = G[(long long)I[p] * n + I[q]];
-  }
-  __syncwarp();
-
-  const bool act = lane < cnt;
-  for (int t = 0; t < cnt; ++t) {
-    const int idx = v0 + t;
-    // b = -G[t, P], c = -G[P, t] (masked to the accepted slots)
-    bs[lane] = act ? -GII[t][lane] * msk[lane] : T(0);
-    cs[lane] = act ? -GII[lane][t] * msk[lane] : T(0);
-    __syncwarp();
-    T Wc = T(0), bW = T(0);
-    if (act) {
-      for (int q = 0; q < cnt; ++q) Wc += Wm[lane][q] * cs[q];  // (W c)_p
-      for (int p = 0; p < cnt; ++p) bW += bs[p] * Wm[p][lane];  // (b W)_q
-    }
-    const T bWc = warp_sum(bs[lane] * Wc);  // the same bits in every lane
-    const T d = delta[idx];
-    const T rf = T(1) + d * (T(1) - GII[t][t]) - d * bWc;
-    const bool accept = us[idx] < gb[idx] * rf * rf;  // >= 0
-    if (accept) {
-      const T inv_s = d / rf;
-      Wc_s[lane] = Wc;
-      bW_s[lane] = bW;
-      __syncwarp();
-      if (act)
-        for (int q = 0; q < cnt; ++q) Wm[lane][q] += inv_s * Wc * bW_s[q];
-      __syncwarp();
-      if (act) {
-        Wm[t][lane] = -inv_s * bW;
-        Wm[lane][t] = -inv_s * Wc;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        Wm[t][t] = inv_s;
-        msk[t] = T(1);
-      }
-    }
-    if (lane == 0) acc[idx] = accept ? T(1) : T(0);
-    __syncwarp();
-  }
+  dqmc::submatrix_decide_warp(sm, G + (long long)w * n * n, n,
+                              order + w * s_order, v0, cnt, gb + ws,
+                              delta + ws, us + ws, acc + ws, false, lane);
+  Wout += (long long)w * k * k;
   for (int e = lane; e < cnt * cnt; e += 32)
-    Wout[(e / cnt) * k + e % cnt] = Wm[e / cnt][e % cnt];
+    Wout[(e / cnt) * k + e % cnt] = sm.Wm[e / cnt][e % cnt];
 }
 
 // grid (ceil(n / PREP_THREADS), walkers); thread a fills column a of

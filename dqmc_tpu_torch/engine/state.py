@@ -133,16 +133,22 @@ def walker_state_from_numpy(*, fields, G, stack_L, stack_d, stack_R,
 
 
 def model_from_numpy(*, n_sites, nt, expK, invexpK, expK_half, invexpK_half,
-                     g, beta, alpha=-1.0, dtype=None, device="cpu"):
-    """AttractiveHubbard from the JAX model's arrays (numpy)."""
+                     g, beta, alpha=-1.0, n_flavor=1, det_power=2,
+                     dtype=None, device="cpu"):
+    """The port's model from a JAX model's arrays (numpy): the attractive
+    model for one stored flavor with det_power 2, the repulsive one for two
+    flavors with det_power 1."""
     from dqmc_tpu_torch import hsfield
-    from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
+    kinds = {(c.N_FLAVOR, c.DET_POWER): c for c in MODEL_REGISTRY.values()}
+    cls = kinds[int(n_flavor), int(det_power)]
     expK = np.asarray(expK)
     dtype = dtype or _torch_dtype(expK)
     as_t = lambda x: torch.as_tensor(np.array(x), dtype=dtype,
                                      device=device)
-    return AttractiveHubbard(
-        n_sites=int(n_sites), nt=int(nt), n_flavor=1, det_power=2,
+    return cls(
+        n_sites=int(n_sites), nt=int(nt), n_flavor=cls.N_FLAVOR,
+        det_power=cls.DET_POWER,
         expK=as_t(expK), invexpK=as_t(invexpK), expK_half=as_t(expK_half),
         invexpK_half=as_t(invexpK_half), g=as_t(g), alpha=as_t(alpha),
         eta=as_t(hsfield.ETA), gamma=as_t(hsfield.GAMMA), beta=as_t(beta))

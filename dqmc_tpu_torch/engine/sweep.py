@@ -11,11 +11,14 @@ Each slice wraps G through B = diag(expV) expK (torch.matmul), runs the
 site update, and extends the block product; every n_stab slices the block
 is folded into the LDR stack (:func:`run_sweep`).  The site update follows
 the EngineConfig (:func:`site_update_fn`): ``use_pallas`` takes the
-walker-batched kernels with a shared visit order (#5 submatrix when
-``submatrix_rank > 0``, else #3 delayed at JAX's rank), else each walker
-runs its own order through the submatrix, delayed (rank ``delay_rank``)
-or rank-1 scheme.  On CUDA tensors all of them launch the kernels of
-``ops/kernels.py``; on CPU tensors they run its plain twins.
+walker-batched kernels with a shared visit order (#4 for a 2-flavor model,
+#5 submatrix when ``submatrix_rank > 0``, else #3 delayed at JAX's rank),
+else each walker runs its own order through the submatrix, delayed (rank
+``delay_rank``) or rank-1 scheme.  On CUDA tensors they launch the kernels
+of ``ops/kernels.py``; on CPU tensors they run its plain twins.  A 2-flavor
+(det_power = 1) model carries its Metropolis sign: every site update
+returns the product of its slice's sign flips and :func:`run_sweep`
+multiplies it into ``states.sign``.
 """
 
 from __future__ import annotations
@@ -137,7 +140,7 @@ def local_update_core(model, G: torch.Tensor, fields_l: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-# per-walker-order site updates (sweep.py:150-403); (G, fields_l, acc)
+# per-walker-order site updates (sweep.py:150-403); (G, fields_l, acc, sgn)
 # ----------------------------------------------------------------------
 
 def _couplings(model, W: int):
@@ -146,51 +149,60 @@ def _couplings(model, W: int):
 
 def local_update_slice(model, G, fields_l, order, props, us):
     """The rank-1 Sherman-Morrison loop (the ``scan`` site update), each
-    walker in its own order (W, ns); kernel #6 on CUDA."""
+    walker in its own order (W, ns); kernel #6 on CUDA for one stored
+    flavor, torch ops for two."""
     g, alpha = _couplings(model, G.shape[0])
-    return kernels.metropolis_slice_update(g, alpha, order, props, us, G,
-                                           fields_l)
+    return kernels.slice_update("rank1", g, alpha, order, props, us, G,
+                                fields_l, 1)
 
 
 def local_update_slice_delayed(model, G, fields_l, order, props, us,
                                k_max: int):
     """Delayed rank-``k_max`` updates, each walker in its own order; a
     short last block when k_max does not divide ns (JAX pads the stream
-    with rejected visits to the same effect); kernel #3 on CUDA."""
+    with rejected visits to the same effect); kernel #3 on CUDA, #4 for
+    two flavors."""
     g, alpha = _couplings(model, G.shape[0])
-    return kernels.metropolis_slice_update_batched(
-        g, alpha, order, props, us, G, fields_l, k_delay=k_max,
-        exact_rank=True)
+    return kernels.slice_update("delayed", g, alpha, order, props, us, G,
+                                fields_l, k_max)
 
 
 def local_update_slice_submatrix(model, G, fields_l, order, props, us,
                                  k_max: int):
     """Submatrix updates of rank ``k_max``, each walker in its own order
-    (a short last block as above); kernel #5 on CUDA."""
+    (a short last block as above), one bordered inverse per flavor; kernel
+    #5 on CUDA for one stored flavor, torch ops for two."""
     g, alpha = _couplings(model, G.shape[0])
-    return kernels.metropolis_slice_update_submatrix(
-        g, alpha, order, props, us, G, fields_l, k_sub=k_max,
-        exact_rank=True)
+    return kernels.slice_update("submatrix", g, alpha, order, props, us, G,
+                                fields_l, k_max)
 
 
 def site_update_fn(model, cfg: EngineConfig):
     """The slice's site update for the config, as a function of (G,
-    fields_l, orders (W, ns), props, us) -> (G, fields_l, acc), mirroring
-    the JAX dispatch (sweep.py:518-553).  The shared-order kernels take
-    walker 0's order, as JAX's batched kernels take keys[0]'s."""
-    if model.n_flavor != 1 or model.det_power != 2:
+    fields_l, orders (W, ns), props, us) -> (G, fields_l, acc, sgn),
+    mirroring the JAX dispatch (sweep.py:518-553).  The shared-order kernels
+    take walker 0's order, as JAX's batched kernels take keys[0]'s; a
+    2-flavor model under ``use_pallas`` takes kernel #4 whatever the
+    submatrix rank, as in JAX."""
+    kinds = (model.n_flavor, model.det_power)
+    if kinds not in ((1, 2), (2, 1)):
         raise NotImplementedError(
-            "site updates: single-flavor det_power=2 models only (ROADMAP: "
-            "the repulsive model with #4)")
+            f"site updates: single-flavor det_power=2 or two-flavor "
+            f"det_power=1 models, not n_flavor, det_power = {kinds}")
 
     def update(G, f, o, p, u):
         if cfg.use_pallas:
             g, alpha = _couplings(model, G.shape[0])
+            if model.n_flavor == 2:
+                return kernels.metropolis_slice_update_batched_2f(
+                    g, alpha, o[0], p, u, G, f)
             if cfg.submatrix_rank > 0:
-                return kernels.metropolis_slice_update_submatrix(
+                out = kernels.metropolis_slice_update_submatrix(
                     g, alpha, o[0], p, u, G, f, k_sub=cfg.submatrix_rank)
-            return kernels.metropolis_slice_update_batched(g, alpha, o[0],
-                                                           p, u, G, f)
+            else:
+                out = kernels.metropolis_slice_update_batched(g, alpha, o[0],
+                                                              p, u, G, f)
+            return out + (torch.ones_like(out[2]),)   # sign-free
         if cfg.submatrix_rank > 0:
             return local_update_slice_submatrix(model, G, f, o, p, u,
                                                 cfg.submatrix_rank)
@@ -228,9 +240,10 @@ def run_sweep(model, cfg: EngineConfig, states: WalkerState, run_block, *,
 
     ``run_block(l0, n, G, fields_blk)`` propagates and updates slices
     l0..l0+n-1 and returns (G, fields_blk, Bbar, acc, sign) with Bbar
-    (W, nfl, ns, ns) the block's propagator product in application order
-    and acc the block's acceptance fraction (W,).  A ragged last block
-    (nt % n_stab != 0) runs last forward and first backward."""
+    (W, nfl, ns, ns) the block's propagator product in application order,
+    acc the block's acceptance fraction (W,) and sign the product of its
+    sign flips (W,).  A ragged last block (nt % n_stab != 0) runs last
+    forward and first backward."""
     W = states.G.shape[0]
     nfl, ns, dtype, dev = model.n_flavor, model.n_sites, model.dtype, \
         model.device
@@ -296,6 +309,7 @@ def sweep(model, cfg: EngineConfig, states: WalkerState, *,
         fb = fb.clone()
         bbar = eye
         acc = torch.zeros((W,), dtype=dtype, device=dev)
+        sgn = torch.ones_like(acc)
         for step in range(n):
             j = step if forward else n - 1 - step
             f = fb[:, j]
@@ -304,17 +318,18 @@ def sweep(model, cfg: EngineConfig, states: WalkerState, *,
                 G = apply_invB_right(model, f, apply_B_left(model, f, G))
             if update:
                 l = l0 + j
-                G, f, acc_l = update_fn(G, f, orders[:, l], props[:, l],
-                                        us[:, l])
+                G, f, acc_l, sgn_l = update_fn(G, f, orders[:, l],
+                                               props[:, l], us[:, l])
                 fb[:, j] = f
                 acc = acc + acc_l
+                sgn = sgn * sgn_l
             if forward:
                 bbar = apply_B_left(model, f, bbar)
             else:
                 # G(l) = B_l^{-1} G(l+1) B_l, post-update fields
                 G = apply_B_right(model, f, apply_invB_left(model, f, G))
                 bbar = apply_B_right(model, f, bbar)
-        return G, fb, bbar, acc / n, torch.ones_like(acc)
+        return G, fb, bbar, acc / n, sgn
 
     return run_sweep(model, cfg, states, run_block, forward=forward)
 

@@ -8,13 +8,18 @@ observables already reduced to displacement space (the transform is linear,
 so this equals the reference's accumulate-then-transform).  The run loop
 adds increments into an accumulator dict; :meth:`ingest_bin` normalizes a
 bin, transforms it to momentum space on the host and writes one HDF5 bin
-per walker through the JAX package's ``BinFileWriter`` (the reference's
+per walker through ``io/h5out.py``'s ``BinFileWriter`` (the reference's
 byte layout): walker w writes ``<out_dir>/data_<w>.h5``.  With
 ``out_dir = None`` nothing is written; the per-bin scalar means are kept
 in ``bin_scalars`` either way.
 
-Unequal-time observables and the opt-in spin/charge sets are not ported yet
-(ROADMAP: modules to port, slice 2).
+For a model with a sign problem (det_power = 1) the increments take the
+walkers' signs: every observable accumulates sign-weighted (<O s>) and a
+``sign`` scalar records <s>, so the analysis can reweight <O> = <O s>/<s>.
+Sign-free runs write no ``sign`` and are byte-identical to the reference.
+
+Unequal-time observables and the opt-in charge set are not ported yet
+(ROADMAP: modules to port, engine/uneqtime.py).
 """
 
 from __future__ import annotations
@@ -56,19 +61,37 @@ class MeasurementManager:
         for name, fn in obs.EQUAL_TIME_OBSERVABLES.items():
             self.add_equal_time(name, fn)
 
-    def increments(self, G: torch.Tensor) -> Dict[tuple, torch.Tensor]:
+    def add_spin(self) -> None:
+        """The opt-in magnetic set ([simulation] measure_spin = true): the
+        spin-z and spin-x correlation matrices."""
+        from dqmc_tpu_torch.measure import observables as obs
+        for name, fn in obs.SPIN_OBSERVABLES.items():
+            self.add_equal_time(name, fn)
+
+    def increments(self, G: torch.Tensor,
+                   signs: torch.Tensor | None = None
+                   ) -> Dict[tuple, torch.Tensor]:
         """One measurement of the walker batch G (W, nfl, ns, ns): a dict
         keyed (kind, name) with scalars (W,) and equal-time observables
-        reduced to (W, L1, L2, n_orb^2)."""
-        out = {}
+        reduced to (W, L1, L2, n_orb^2).  With ``signs`` (W,) every value
+        is multiplied by its walker's sign and ("scalar", "sign") holds
+        the signs."""
+        out = {} if signs is None else {("scalar", "sign"): signs.clone()}
+        s = 1.0 if signs is None else signs
         for name, fn in self._scalar_fns.items():
-            out[("scalar", name)] = fn(G, self.ctx)
+            out[("scalar", name)] = fn(G, self.ctx) * s
+        if signs is not None:
+            s = signs[:, None, None, None]
         for name, fn in self._eq_fns.items():
-            out[("eq", name)] = site_to_r_batched(fn(G, self.ctx), self.ctx)
+            out[("eq", name)] = site_to_r_batched(fn(G, self.ctx),
+                                                  self.ctx) * s
         return out
 
-    def zero_acc(self, G: torch.Tensor) -> Dict[tuple, torch.Tensor]:
-        return {k: torch.zeros_like(v) for k, v in self.increments(G).items()}
+    def zero_acc(self, G: torch.Tensor,
+                 signs: torch.Tensor | None = None
+                 ) -> Dict[tuple, torch.Tensor]:
+        return {k: torch.zeros_like(v)
+                for k, v in self.increments(G, signs).items()}
 
     def ingest_bin(self, acc: Dict[tuple, torch.Tensor], count: int) -> None:
         """Close one bin from an accumulator of ``count`` measurements:

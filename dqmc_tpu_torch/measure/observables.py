@@ -4,7 +4,8 @@ PyTorch counterpart of the equal-time part of
 ``dqmc_tpu/measure/observables.py`` (the reference's model.cpp:165-288).
 Each function takes G00 (..., nfl, ns, ns) with any leading walker axes;
 the up/down species are G00[..., 0, :, :] / G00[..., -1, :, :], identical
-for the spin-symmetric attractive model.  Where the reference's arithmetic
+for the spin-symmetric attractive model (nfl = 1) and distinct for the
+2-flavor repulsive model.  Where the reference's arithmetic
 deviates from the textbook Wick expression it is reproduced (NOTES.md
 "Quirks knowingly reproduced").
 """
@@ -59,6 +60,30 @@ def density_corr(G00, ctx: MeasurementContext):
             - (n_avg ** 2)[..., None, None])
 
 
+def spin_zz_corr(G00, ctx: MeasurementContext):
+    """<S^z_i S^z_j> with S^z = (n_up - n_dn)/2 (beyond the reference; the
+    magnetic probe of the 2-flavor repulsive model):
+    1/4 [m_i m_j + X_up(i,j) + X_dn(i,j)], m_i = <n_iu> - <n_id> and
+    X_s(i,j) = (delta_ij - G_s(j,i)) G_s(i,j) -- the textbook delta_ij, not
+    the reference's 1 - G quirk of density_corr."""
+    Gup, Gdn = _updn(G00)
+    eye = torch.eye(ctx.n_sites, dtype=G00.dtype, device=G00.device)
+    m = _diag(Gdn) - _diag(Gup)
+    X = ((eye - Gup.transpose(-1, -2)) * Gup
+         + (eye - Gdn.transpose(-1, -2)) * Gdn)
+    return 0.25 * (m[..., :, None] * m[..., None, :] + X)
+
+
+def spin_xx_corr(G00, ctx: MeasurementContext):
+    """<S^x_i S^x_j> = 1/4 [<S+_i S-_j> + <S-_i S+_j>] with
+    <S+_i S-_j> = (delta_ij - Gu(j,i)) Gd(i,j) and the spin-flipped mirror.
+    Equals spin_zz_corr for a spin-symmetric G (SU(2))."""
+    Gup, Gdn = _updn(G00)
+    eye = torch.eye(ctx.n_sites, dtype=G00.dtype, device=G00.device)
+    return 0.25 * ((eye - Gup.transpose(-1, -2)) * Gdn
+                   + (eye - Gdn.transpose(-1, -2)) * Gup)
+
+
 # registries used by run.py (main.cpp:116-122)
 SCALAR_OBSERVABLES = {
     "density": density,
@@ -68,4 +93,10 @@ SCALAR_OBSERVABLES = {
 
 EQUAL_TIME_OBSERVABLES = {
     "densityCorr": density_corr,
+}
+
+# the opt-in magnetic set ([simulation] measure_spin = true)
+SPIN_OBSERVABLES = {
+    "spinZZCorr": spin_zz_corr,
+    "spinXXCorr": spin_xx_corr,
 }

@@ -65,11 +65,16 @@ class AttractiveHubbard:
     beta: torch.Tensor       # () inverse temperature
     checkerboard: bool = False
 
+    # what build() gives this model; RepulsiveHubbard overrides them
+    N_FLAVOR = 1
+    DET_POWER = 2
+    ALPHA = -1.0
+
     @classmethod
     def build(cls, lat: Lattice, *, U: float, t: float, mu: float,
               beta: float, nt: int, dtype=torch.float64,
               device="cpu", checkerboard: bool = False,
-              bonds=None) -> "AttractiveHubbard":
+              bonds=None):
         if checkerboard:
             raise NotImplementedError(
                 "checkerboard kinetics are not ported to dqmc_tpu_torch yet "
@@ -80,13 +85,14 @@ class AttractiveHubbard:
         as_t = lambda x: torch.as_tensor(np.asarray(x, np.float64),
                                          dtype=dtype, device=device)
         return cls(
-            n_sites=lat.n_sites, nt=int(nt), n_flavor=1, det_power=2,
+            n_sites=lat.n_sites, nt=int(nt), n_flavor=cls.N_FLAVOR,
+            det_power=cls.DET_POWER,
             expK=as_t(scipy.linalg.expm(-dtau * K)),
             invexpK=as_t(scipy.linalg.expm(dtau * K)),
             expK_half=as_t(scipy.linalg.expm(-0.5 * dtau * K)),
             invexpK_half=as_t(scipy.linalg.expm(0.5 * dtau * K)),
             g=as_t(np.sqrt(0.5 * abs(U) * dtau)),
-            alpha=as_t(-1.0),
+            alpha=as_t(cls.ALPHA),
             eta=as_t(hsfield.ETA),
             gamma=as_t(hsfield.GAMMA),
             beta=as_t(beta),

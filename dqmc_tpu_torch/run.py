@@ -1,21 +1,26 @@
 """Simulation driver: ``python -m dqmc_tpu_torch``.
 
 PyTorch counterpart of ``dqmc_tpu/run.py`` for the slice the port serves so
-far: the attractive Hubbard model with dense kinetics on any of the
-package's lattices, walker-batched on one device through the fused block
-engine (the wrap/site-loop kernels) or the per-slice engine (the delayed,
-submatrix and rank-1 site-update kernels), with the CGS2 QR kernel for
-float32 stabilization on CUDA and plain twins on the CPU; float32 or
-float64, equal-time measurement of density, doubleOcc, swave and
-densityCorr, binned HDF5 output that ``python -m dqmc_tpu.analysis``
-reads.
+far: the attractive (``[hubbard] model = attractive``, one stored flavor)
+and the repulsive (``model = repulsive``, two flavors with a tracked
+Metropolis sign) Hubbard model with dense kinetics on any of the package's
+lattices, walker-batched on one device through the fused block engine (the
+wrap/site-loop kernels) or the per-slice engine (the delayed, submatrix and
+rank-1 site-update kernels), with the CGS2 QR kernel for float32
+stabilization on CUDA and plain twins on the CPU; float32 or float64,
+equal-time measurement of density, doubleOcc, swave and densityCorr, plus
+spinZZCorr and spinXXCorr with ``measure_spin = true``, sign-weighted with
+a ``sign`` scalar for the repulsive model, binned HDF5 output that
+``python -m dqmc_tpu.analysis`` reads and reweights.
 
 ``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
-when it supports the model (ns <= 512, dense kinetics) and the per-slice
-engine otherwise, as the JAX driver does; ``fused`` and ``slice`` force
-one.  ``site_update`` (pallas / scan / delayed / submatrix, default pallas
-on CUDA and scan on the CPU) and ``delay_rank`` configure the per-slice
-engine as in the JAX package.
+when it supports the model (ns <= 512, dense kinetics, rank-k buffers that
+fit one CTA's shared memory) and the per-slice engine otherwise, as the JAX
+package does; ``fused`` and ``slice`` force one.  ``fused_update`` (delayed /
+submatrix) picks the fused block's in-slice scheme.  ``site_update``
+(pallas / scan / delayed / submatrix, default pallas on CUDA and scan on
+the CPU) and ``delay_rank`` configure the per-slice engine as in the JAX
+package.
 
 Reads ``parameters.in`` (the JAX package's schema) from the working
 directory.  ``--device`` selects the device (``cuda`` by default; CPU runs
@@ -41,7 +46,7 @@ from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
                                          reset_error_stats, sweep_pair)
 from dqmc_tpu_torch.lattice import make_lattice
 from dqmc_tpu_torch.measure.manager import MeasurementManager
-from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard
+from dqmc_tpu_torch.models import MODEL_REGISTRY
 
 
 def _unported(params: Parameters):
@@ -50,7 +55,8 @@ def _unported(params: Parameters):
     return [
         (what, item) for on, what, item in [
             (get_b("simulation", "isMeasureUnequalTime", False),
-             "isMeasureUnequalTime = true", "slice 2, engine/uneqtime.py"),
+             "isMeasureUnequalTime = true (and with it the tau-resolved "
+             "spin and charge sets)", "slice 2, engine/uneqtime.py"),
             (get_s("simulation", "dtype", "") in ("df32", "df"),
              "dtype = df32", "slice 4, the multiword engines"),
             (get_s("simulation", "measure_precision", "engine") != "engine",
@@ -64,16 +70,10 @@ def _unported(params: Parameters):
              "multi-host runs", "slice 3, devices"),
             (get_i("simulation", "checkpoint_every", 0) > 0,
              "checkpointing", "slice 2, io/checkpoint.py"),
-            (get_s("hubbard", "model", "attractive") != "attractive",
-             "the repulsive model", "slice 3, other models"),
             (get_b("hubbard", "checkerboard", False),
              "checkerboard kinetics", "slice 3, other models"),
-            (get_b("simulation", "measure_spin", False), "measure_spin",
-             "slice 2, engine/uneqtime.py and observables"),
             (get_b("simulation", "measure_charge", False), "measure_charge",
              "slice 2, engine/uneqtime.py and observables"),
-            (get_s("simulation", "fused_update", "delayed") != "delayed",
-             "fused_update = submatrix", "Pallas kernels to port, #2c"),
             (get_s("simulation", "wrap_precision", "highest") != "highest",
              "wrap_precision other than highest",
              "not to port (TPU MXU-pass knob)"),
@@ -114,7 +114,8 @@ def make_engine_config(params: Parameters, device: torch.device,
     (the default on the CPU), delayed or submatrix; the last two take
     their rank from ``delay_rank`` (default 32).  ``submatrix`` takes the
     shared-order kernel on CUDA and the per-walker-order scheme on the
-    CPU."""
+    CPU.  The default holds for both models: a 2-flavor model under pallas
+    takes the 2-flavor delayed kernel."""
     on_cuda = device.type == "cuda"
     impl = params.get_str("simulation", "site_update",
                           "pallas" if on_cuda else "scan")
@@ -122,6 +123,9 @@ def make_engine_config(params: Parameters, device: torch.device,
     common = dict(nt=params.get_int("simulation", "nt"), n_stab=n_stab,
                   fused_update=params.get_str("simulation", "fused_update",
                                               "delayed"))
+    if common["fused_update"] not in ("delayed", "submatrix"):
+        raise ValueError(f"[simulation] fused_update "
+                         f"{common['fused_update']!r}: delayed or submatrix")
     if impl == "pallas":
         return EngineConfig(use_pallas=True, **common)
     if impl == "delayed":
@@ -136,13 +140,14 @@ def make_engine_config(params: Parameters, device: torch.device,
 
 
 def use_fused_engine(params: Parameters, model, device: torch.device,
-                     dtype) -> bool:
+                     dtype, cfg: EngineConfig | None = None) -> bool:
     """``engine``: auto takes the fused engine when it supports the model
-    on CUDA in float32 (run.py:367-380 of the JAX package); fused and
-    slice force one."""
+    and the config's ``fused_update`` on CUDA in float32 (run.py:367-380 of
+    the JAX package); fused and slice force one (a forced fused engine
+    raises on what it does not support)."""
     kind = params.get_str("simulation", "engine", "auto")
     if kind == "auto":
-        return (supports_fused(model) and device.type == "cuda"
+        return (supports_fused(model, cfg) and device.type == "cuda"
                 and dtype == torch.float32)
     if kind in ("fused", "slice"):
         return kind == "fused"
@@ -165,6 +170,8 @@ class RunSummary:
     device: str
     # scalar observables averaged over walkers and bins
     observables: dict = dataclasses.field(default_factory=dict)
+    # each walker's Metropolis sign at the end (all +1 for sign-free models)
+    walker_signs: list = dataclasses.field(default_factory=list)
 
 
 def _stats(states) -> dict:
@@ -215,27 +222,37 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
                        params.get_int("Lattice", "L2"))
     if out_dir is not None:
         lat.save_info(os.path.join(out_dir, "info"))
-    model = AttractiveHubbard.from_params(params, lat, dtype=dtype,
-                                          device=device)
+    model_name = params.get_str("hubbard", "model", "attractive")
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"[hubbard] model {model_name!r}: "
+                         + " or ".join(sorted(MODEL_REGISTRY)))
+    model = MODEL_REGISTRY[model_name].from_params(params, lat, dtype=dtype,
+                                                   device=device)
+    signed = model.det_power == 1
     cfg = make_engine_config(params, device, n_stab)
-    fused = use_fused_engine(params, model, device, dtype)
+    fused = use_fused_engine(params, model, device, dtype, cfg)
     step = sweep_pair_fused if fused else sweep_pair
     log(f"Standard DQMC run: {lat.L1}x{lat.L2} lattice, "
         f"beta={float(model.beta)}, nt={nt}, {n_walkers} walkers, "
         f"dtype={str(dtype).replace('torch.', '')}, device={device}")
+    flavors = f"{model.n_flavor} flavor" + "s" * (model.n_flavor > 1)
     if fused:
-        log("Engine: fused block (wrap + site-loop kernels)")
+        log(f"Engine: fused block (wrap + {cfg.fused_update} site-loop "
+            f"kernels, {flavors})")
     else:
-        scheme = ("submatrix" if cfg.submatrix_rank else
+        two_pallas = cfg.use_pallas and model.n_flavor == 2
+        scheme = ("submatrix" if cfg.submatrix_rank and not two_pallas else
                   "delayed" if cfg.use_pallas or cfg.delay_rank else "rank-1")
         order = "shared" if cfg.use_pallas else "per-walker"
         log(f"Engine: per slice ({scheme} site update, {order} visit "
-            f"order)")
+            f"order, {flavors})")
 
     states = init_state(model, cfg, make_generators(seed, n_walkers, device))
     manager = MeasurementManager(lat, n_walkers=n_walkers, out_dir=out_dir,
                                  device=device)
     manager.add_defaults()
+    if params.get_bool("simulation", "measure_spin", False):
+        manager.add_spin()
 
     # the reference warns when the naive-vs-stabilized deviation exceeds
     # 1e-6 (dqmc.cpp:390-393); the f32 default reflects the single-precision
@@ -297,11 +314,12 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
 
     t0 = time.perf_counter()
     for ibin in range(n_bins):
-        acc = manager.zero_acc(states.G)
+        acc = manager.zero_acc(states.G, states.sign if signed else None)
         for _ in range(n_sweeps):
             states = step(model, cfg, states)
             G = half_warp(model, states.G) if symmetric else states.G
-            for key, v in manager.increments(G).items():
+            signs = states.sign if signed else None
+            for key, v in manager.increments(G, signs).items():
                 acc[key] += v
         manager.ingest_bin(acc, n_sweeps)
         if not warned:
@@ -350,16 +368,17 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         sweeps_per_sec=rate, acc_rate=acc_rate,
         max_precision_error=err_max, mean_precision_error=err_mean,
         therm_max_precision_error=therm_err_max, n_stab=cfg.n_stab,
-        device=str(device), observables=observables)
+        device=str(device), observables=observables,
+        walker_signs=states.sign.tolist())
 
 
 def main(argv=None) -> RunSummary:
     import argparse
     p = argparse.ArgumentParser(
         prog="dqmc_tpu_torch",
-        description="Determinant QMC of the attractive Hubbard model on "
-                    "PyTorch/CUDA. Run inside a directory containing "
-                    "parameters.in.")
+        description="Determinant QMC of the attractive or repulsive Hubbard "
+                    "model on PyTorch/CUDA. Run inside a directory "
+                    "containing parameters.in.")
     p.add_argument("-f", "--file", default="parameters.in",
                    help="parameter file (default: parameters.in)")
     p.add_argument("-d", "--out-dir", default="results",

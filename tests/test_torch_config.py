@@ -52,7 +52,24 @@ def test_parameters_typed_getters_as_jax():
 @pytest.mark.parametrize("geometry,L1,L2", [("square", 4, 4),
                                             ("square", 5, 3),
                                             ("triangular", 4, 4),
-                                            ("honeycomb", 3, 3)])
+                                            ("honeycomb", 3, 3),
+                                            ("square", 2, 2),
+                                            ("square", 3, 6),
+                                            ("square", 6, 6),
+                                            ("square", 8, 4),
+                                            ("square", 10, 10),
+                                            ("triangular", 2, 2),
+                                            ("triangular", 3, 3),
+                                            ("triangular", 3, 5),
+                                            ("triangular", 6, 4),
+                                            ("triangular", 6, 6),
+                                            ("honeycomb", 2, 2),
+                                            ("honeycomb", 2, 4),
+                                            ("honeycomb", 4, 3),
+                                            ("honeycomb", 4, 4),
+                                            ("honeycomb", 6, 6),
+                                            ("square", 12, 12),
+                                            ("honeycomb", 3, 5)])
 def test_lattice_tables_match_jax(tmp_path, geometry, L1, L2):
     j = jlattice.make_lattice(geometry, L1, L2)
     t = tlattice.make_lattice(geometry, L1, L2)
@@ -82,13 +99,15 @@ def _layout(path):
     return out
 
 
-def test_bin_writer_matches_jax(tmp_path, rng):
+@pytest.mark.parametrize("shape,n_bins", [((4, 4, 1), 2), ((6, 6, 1), 1),
+                                          ((3, 3, 2), 3), ((8, 4, 1), 4)])
+def test_bin_writer_matches_jax(tmp_path, rng, shape, n_bins):
     scalars = {"density": 0.9, "swave": 1.5}
-    eq_r = {"densityCorr": rng.standard_normal((4, 4, 1))}
-    eq_k = {"densityCorr": rng.standard_normal((4, 4, 1))
-            + 1j * rng.standard_normal((4, 4, 1))}
+    eq_r = {"densityCorr": rng.standard_normal(shape)}
+    eq_k = {"densityCorr": rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)}
     for mod, name in ((jh5out, "j.h5"), (th5out, "t.h5")):
         with mod.BinFileWriter(tmp_path / name) as w:
-            for b in range(2):
+            for b in range(n_bins):
                 w.write_bin(b, scalars, eq_r, eq_k, {}, {})
     assert _layout(tmp_path / "t.h5") == _layout(tmp_path / "j.h5")

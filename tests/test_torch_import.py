@@ -66,20 +66,58 @@ n_stab = 4
     ("ParallelTempering", "enabled", "true"),
     ("walkers", "n_devices", "2"),
     ("simulation", "checkpoint_every", "1"),
-    ("hubbard", "model", "repulsive"),
     ("hubbard", "checkerboard", "true"),
-    ("simulation", "measure_spin", "true"),
     ("simulation", "measure_charge", "true"),
     ("simulation", "wrap_precision", "default"),
-    ("simulation", "fused_update", "submatrix"),
+    ("simulation", "matmul_precision", "default"),
+    ("io", "sink", "spool"),
+    ("simulation", "profile_dir", "trace"),
+    ("distributed", "coordinator_address", "localhost:1234"),
+    # the repulsive model's equal-time set is ported; its tau-resolved
+    # part still needs engine/uneqtime.py
+    ("simulation", "isMeasureUnequalTime", "true+repulsive"),
 ])
 def test_unported_configuration_raises(tmp_path, section, key, value):
     from dqmc_tpu_torch.run import run_simulation
     params = Parameters.from_string(_BASE)
+    if value.endswith("+repulsive"):
+        value = value.split("+")[0]
+        params.set("hubbard", "model", "repulsive")
+        params.set("simulation", "measure_spin", "true")
     params.set(section, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_simulation(params, out_dir=str(tmp_path / "results"),
                        verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("section,key,value,match", [
+    ("hubbard", "model", "extended", "attractive or repulsive"),
+    ("simulation", "fused_update", "rank1", "delayed or submatrix"),
+    ("simulation", "engine", "both", "auto, fused or slice"),
+    ("simulation", "site_update", "fast", "pallas, scan"),
+])
+def test_unknown_choice_raises(tmp_path, section, key, value, match):
+    from dqmc_tpu_torch.run import run_simulation
+    params = Parameters.from_string(_BASE)
+    params.set(section, key, value)
+    with pytest.raises(ValueError, match=match):
+        run_simulation(params, out_dir=None, verbose=False, device="cpu")
+
+
+def test_forced_fused_engine_refuses_two_flavor_submatrix():
+    """engine = fused lets what the fused engine does not support raise;
+    engine = auto falls to the per-slice engine."""
+    from dqmc_tpu_torch.run import run_simulation
+    params = Parameters.from_string(_BASE)
+    params.set("hubbard", "model", "repulsive")
+    params.set("simulation", "fused_update", "submatrix")
+    params.set("simulation", "engine", "fused")
+    with pytest.raises(NotImplementedError, match="fused sweep"):
+        run_simulation(params, out_dir=None, verbose=False, device="cpu")
+    params.set("simulation", "engine", "auto")
+    summary = run_simulation(params, out_dir=None, verbose=False,
+                             device="cpu")
+    assert summary.observables["sign"] == 1.0
 
 
 def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):
@@ -91,17 +129,28 @@ def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):
                        device="cuda")
 
 
-@pytest.mark.parametrize("kernel", ["cgs2_qr", "fused_wrap", "fused_sites"])
+@pytest.mark.parametrize("kernel", ["cgs2_qr", "fused_wrap", "fused_sites",
+                                    "fused_sites_2f", "fused_sites_sub",
+                                    "delayed_sites_2f"])
 def test_kernel_wrappers_raise_on_cpu_tensors(kernel):
     """A kernel wrapper launches its kernel or raises: it never runs the
     plain twin, and a refused call counts no launch."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.engine import fused
-    from dqmc_tpu_torch.ops import qr_kernel
+    from dqmc_tpu_torch.ops import kernels, qr_kernel
     W, n = 2, 32
     G = torch.zeros((W, n, n))
+    G2 = torch.zeros((W, 2, n, n))
     v = torch.zeros((W, n))
+    v2 = torch.zeros((W, 2, n))
+    order = torch.zeros((1, n), dtype=torch.int32)
     calls = {
+        "fused_sites_2f": lambda: fused.site_loop_cuda(
+            G2, v.clone(), order, v, v2, v, 0, 32, torch.ones(W)),
+        "fused_sites_sub": lambda: fused.site_loop_sub_cuda(
+            G, v.clone(), order, v, v, v, 0, 32),
+        "delayed_sites_2f": lambda: kernels.check_cuda_slice(
+            G2, order[0], v, v2, v, "delayed", 32),
         "cgs2_qr": lambda: qr_kernel._cgs2_qr_cuda(G, True),
         "fused_wrap": lambda: fused.wrap_gemm_cuda(G, G, rv=v),
         "fused_sites": lambda: fused.site_loop_cuda(
@@ -130,7 +179,13 @@ def test_kernel_sources_are_listed():
     assert names == ["cgs2_qr.cu", "fused_block.cu", "site_update.cu",
                      "submatrix_update.cu"]
     assert _cuda.library_path().parent == _cuda.BUILD_DIR
+    assert sorted(p.name for p in _cuda.CSRC.glob("*.cuh")) == [
+        "rank_k_flush.cuh", "submatrix_decide.cuh"]
     assert set(_cuda.LAUNCHES) == {
-        "cgs2_qr", "fused_wrap", "fused_sites", "delayed_sites",
+        "cgs2_qr", "fused_wrap", "fused_sites", "fused_sites_2f",
+        "fused_sites_sub", "delayed_sites", "delayed_sites_2f",
         "delayed_flush", "rank1_sites", "submatrix_decide", "submatrix_prep",
         "submatrix_flush"}
+    # every C entry point has both float types' signatures declared
+    assert {"dqmc_site_loop_2f", "dqmc_site_loop_sub",
+            "dqmc_delayed_sites_2f"} <= set(_cuda._SIGNATURES)

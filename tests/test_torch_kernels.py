@@ -1,5 +1,5 @@
 """The site-update kernels' plain twins of dqmc_tpu_torch (what the CUDA
-kernels #3, #5 and #6 compute, run here on CPU tensors) against the JAX
+kernels #3, #4, #5 and #6 compute, run here on CPU tensors) against the JAX
 package's Pallas kernels in interpret mode and its per-walker-order scan
 schemes, at float64 on 4x4 and 6x6 lattices.
 
@@ -19,13 +19,18 @@ from dqmc_tpu.engine import EngineConfig, init_state
 from dqmc_tpu.engine.sweep import (local_update_slice_delayed,
                                    local_update_slice_submatrix)
 from dqmc_tpu.lattice import square_lattice
-from dqmc_tpu.models import AttractiveHubbard
-from dqmc_tpu.ops.kernels import (_metropolis_batched_impl,
+from dqmc_tpu.models import AttractiveHubbard, RepulsiveHubbard
+from dqmc_tpu.ops.kernels import (_metropolis_batched_2f_impl,
+                                  _metropolis_batched_impl,
                                   _metropolis_batched_sub_impl,
                                   metropolis_slice_update)
 from dqmc_tpu_torch.engine import sweep as tsweep
 from dqmc_tpu_torch.ops import kernels as tk
-from torch_port_util import jax_slice_streams, to_np, torch_model
+from torch_port_util import (  # noqa: F401
+    jax_slice_streams,
+    release_jax_programs,
+    to_np,
+    torch_model)
 
 torch.set_num_threads(1)
 
@@ -54,7 +59,7 @@ def _couplings(model):
 
 
 def _assert_same(got, want):
-    (Gt, ft, at), (Gj, fj, aj) = got, want
+    (Gt, ft, at), (Gj, fj, aj) = got[:3], want
     np.testing.assert_array_equal(to_np(ft), np.asarray(fj))
     np.testing.assert_array_equal(to_np(at), np.asarray(aj))
     np.testing.assert_allclose(to_np(Gt), np.asarray(Gj), atol=G_TOL)
@@ -130,6 +135,62 @@ def test_per_walker_twins_match_jax_schemes(scheme, L, k):
     _assert_same(got, want)
 
 
+def test_two_flavor_delayed_twin_matches_jax_kernel():
+    """#4 at (W=3, ns=16, k=8), doped (U=6, mu=-0.8) on the fake G of
+    tests/test_kernels.py: fields, acceptance and the sign product
+    identical, G to 1e-11, and a sign flip seen."""
+    ns = 16
+    m = RepulsiveHubbard.build(square_lattice(4, 4), U=6.0, t=1.0, mu=-0.8,
+                               beta=4.0, nt=16, dtype=jnp.float64)
+    rng = np.random.default_rng(21)
+    G = rng.standard_normal((W, 2, ns, ns)) * 0.3 + 0.5 * np.eye(ns)
+    fields = rng.integers(0, 4, (W, ns)).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(29), W)
+    g = np.full((W,), float(m.g))
+    alpha = np.full((W,), float(m.alpha))
+    want = _metropolis_batched_2f_impl(
+        jnp.asarray(g), jnp.asarray(alpha), keys, jnp.asarray(G),
+        jnp.asarray(fields), k_delay=8, interpret=True)
+    orders, props, us = jax_slice_streams(keys, ns, jnp.float64)
+    got = tk.metropolis_slice_update_batched_2f(
+        _t(g), _t(alpha), _t(orders[0]), _t(props), _t(us), _t(G),
+        _t(fields).long(), k_delay=8)
+    _assert_same(got, want[:3])
+    np.testing.assert_array_equal(to_np(got[3]), np.asarray(want[3]))
+    assert (to_np(got[3]) == -1.0).any(), "no sign flip: reseed"
+    # the engine's rank-1 oracle realizes the same chain and sign
+    tm = torch_model(m)
+    for w in range(W):
+        Go, fo, ao, so = tsweep.local_update_core(
+            tm, _t(G[w]), _t(fields[w]).long(), _t(orders[0]), _t(props[w]),
+            _t(us[w]))
+        np.testing.assert_array_equal(to_np(fo), to_np(got[1][w]))
+        np.testing.assert_allclose(to_np(Go), to_np(got[0][w]), atol=G_TOL)
+        assert so == float(got[3][w])
+
+
+@pytest.mark.parametrize("scheme", ["rank1", "submatrix"])
+def test_two_flavor_schemes_without_a_kernel_match_the_delayed_twin(scheme):
+    """The 2-flavor rank-1 and submatrix forms (torch ops on any device)
+    realize the chain of the 2-flavor delayed twin."""
+    ns = 16
+    m = RepulsiveHubbard.build(square_lattice(4, 4), U=6.0, t=1.0, mu=-0.8,
+                               beta=4.0, nt=16, dtype=jnp.float64)
+    rng = np.random.default_rng(5)
+    G = _t(rng.standard_normal((W, 2, ns, ns)) * 0.3 + 0.5 * np.eye(ns))
+    fields = _t(rng.integers(0, 4, (W, ns)))
+    orders = _t(np.stack([rng.permutation(ns) for _ in range(W)]))
+    props, us = _t(rng.integers(0, 3, (W, ns))), _t(rng.random((W, ns)))
+    g = torch.full((W,), float(m.g), dtype=torch.float64)
+    alpha = torch.zeros((W,), dtype=torch.float64)
+    args = (g, alpha, orders, props, us, G, fields)
+    want = tk.slice_update("delayed", *args, 8)
+    got = tk.slice_update(scheme, *args, 1 if scheme == "rank1" else 4)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(to_np(got[0]), to_np(want[0]), atol=G_TOL)
+
+
 def test_pick_rank_is_jax_rule():
     assert [tk.pick_rank(ns) for ns in (1024, 256, 36, 16, 20, 9)] == \
         [32, 32, 4, 16, 4, 1]
@@ -161,3 +222,16 @@ def test_cuda_slice_check_refuses_shapes_beyond_the_kernels(scheme, n, k):
     order = torch.arange(n, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.check_cuda_slice(G, order, v, v, v, scheme, k)
+
+
+@pytest.mark.parametrize("scheme", ["rank1", "submatrix"])
+def test_cuda_slice_check_refuses_two_flavors_without_a_kernel(scheme):
+    """Only the delayed scheme has a 2-flavor kernel (#4)."""
+    G = torch.zeros((1, 2, 16, 16))
+    v = torch.zeros((1, 16))
+    d = torch.zeros((1, 2, 16))
+    order = torch.arange(16, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="#4"):
+        tk.check_cuda_slice(G, order, v, d, v, scheme, 4)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tk.check_cuda_slice(G, order, v, d, v, "delayed", 4)

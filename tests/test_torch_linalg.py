@@ -15,7 +15,7 @@ from dqmc_tpu.lattice import square_lattice
 from dqmc_tpu.models import AttractiveHubbard
 from dqmc_tpu.ops import linalg as jlin
 from dqmc_tpu_torch.ops import linalg as tlin
-from torch_port_util import to_np
+from torch_port_util import (release_jax_programs, to_np)  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -54,8 +54,9 @@ def _rel_gap(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-def test_to_ldr_matches_jax():
-    Bs = _propagators(0)
+@pytest.mark.parametrize("seed", [0, 5, 6])
+def test_to_ldr_matches_jax(seed):
+    Bs = _propagators(seed)
     M = np.eye(16)
     for B in Bs[:8]:
         M = B @ M
@@ -71,7 +72,7 @@ def test_to_ldr_matches_jax():
                                atol=1e-12 * d.max())
 
 
-@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("seed", [1, 2, 7, 8])
 def test_mat_mul_ldr_chain_matches_jax(seed):
     Bs = _propagators(seed)
     jF, tF = _fold(JOPS, Bs), _fold(TOPS, Bs)
@@ -83,7 +84,7 @@ def test_mat_mul_ldr_chain_matches_jax(seed):
                                rtol=1e-10)
 
 
-@pytest.mark.parametrize("beta", [1.0, 6.0])
+@pytest.mark.parametrize("beta", [1.0, 6.0, 0.5, 3.0])
 def test_inv_one_plus_ldr_dag_matches_jax(beta):
     Bs = _propagators(3, beta=beta)
     half = len(Bs) // 2
@@ -108,17 +109,19 @@ def test_inv_one_plus_ldr_dag_matches_jax(beta):
                                atol=1e-12)
 
 
-def test_identity_factors():
-    F = tlin.identity_ldr(8)
-    assert _rel_gap(tlin.ldr_matrix(F), np.eye(8)) == 0.0
+@pytest.mark.parametrize("n", [8, 1, 16, 36])
+def test_identity_factors(n):
+    F = tlin.identity_ldr(n)
+    assert _rel_gap(tlin.ldr_matrix(F), np.eye(n)) == 0.0
     G, log_det = tlin.inv_one_plus_ldr_dag(F, F)
-    np.testing.assert_allclose(to_np(G), 0.5 * np.eye(8), atol=1e-15)
-    np.testing.assert_allclose(float(log_det), 8 * np.log(2.0), rtol=1e-14)
+    np.testing.assert_allclose(to_np(G), 0.5 * np.eye(n), atol=1e-15)
+    np.testing.assert_allclose(float(log_det), n * np.log(2.0), rtol=1e-14)
 
 
-def test_qr_solve_logdet_matches_jax(rng):
-    A = rng.standard_normal((3, 20, 20)) + 4 * np.eye(20)
-    B = rng.standard_normal((3, 20, 20))
+@pytest.mark.parametrize("n", [20, 8, 33])
+def test_qr_solve_logdet_matches_jax(rng, n):
+    A = rng.standard_normal((3, n, n)) + 4 * np.eye(n)
+    B = rng.standard_normal((3, n, n))
     jX, jl = jax.vmap(jlin._qr_solve_logdet)(jnp.asarray(A), jnp.asarray(B))
     tX, tl = tlin._qr_solve_logdet(torch.as_tensor(A), torch.as_tensor(B))
     np.testing.assert_allclose(to_np(tX), np.asarray(jX), atol=1e-12)

@@ -18,7 +18,10 @@ from dqmc_tpu_torch.engine.state import make_generators
 from dqmc_tpu_torch.models import AttractiveHubbard as TAttractiveHubbard
 from dqmc_tpu_torch.models import attractive_hubbard as tah
 from dqmc_tpu_torch.models import kinetic as tkin
-from torch_port_util import to_np, torch_model
+from torch_port_util import (  # noqa: F401
+    release_jax_programs,
+    to_np,
+    torch_model)
 
 torch.set_num_threads(1)
 
@@ -33,29 +36,36 @@ def test_hsfield_tables_exact():
                                   jhs.PROPOSAL)
 
 
-def test_log_gamma_eta_sums_matches_jax(rng):
+@pytest.mark.parametrize("g,sign", [(0.3, -1.0), (0.3, 1.0), (0.05, -1.0),
+                                    (1.2, 1.0)])
+def test_log_gamma_eta_sums_matches_jax(rng, g, sign):
     fields = rng.integers(0, 4, (12, 16))
-    g = 0.3
     jb, jg = jhs.log_gamma_eta_sums(jnp.asarray(fields),
-                                    jnp.asarray(g, jnp.float64), -1.0)
+                                    jnp.asarray(g, jnp.float64), sign)
     tb, tg = ths.log_gamma_eta_sums(torch.as_tensor(fields),
                                     torch.tensor(g, dtype=torch.float64),
-                                    -1.0)
+                                    sign)
     np.testing.assert_allclose(float(tb), float(jb), rtol=1e-14)
     np.testing.assert_allclose(float(tg), float(jg), rtol=1e-14)
 
 
-def test_field_draws():
+@pytest.mark.parametrize("nt,ns", [(8, 16), (1, 4), (40, 36)])
+def test_field_draws(nt, ns):
     gen = make_generators(1, 1, "cpu")[0]
-    f = ths.init_fields(gen, 8, 16)
-    assert f.shape == (8, 16) and f.min() >= 0 and f.max() <= 3
+    f = ths.init_fields(gen, nt, ns)
+    assert f.shape == (nt, ns) and f.min() >= 0 and f.max() <= 3
     new = ths.propose_new_fields(gen, f)
     assert (new != f).all() and new.min() >= 0 and new.max() <= 3
 
 
 @pytest.mark.parametrize("geometry,L,tp", [("square", 4, 0.0),
                                            ("square", 6, 0.2),
-                                           ("honeycomb", 3, 0.0)])
+                                           ("honeycomb", 3, 0.0),
+                                           ("square", 2, 0.0),
+                                           ("square", 4, -0.3),
+                                           ("triangular", 3, 0.0),
+                                           ("triangular", 4, 0.0),
+                                           ("honeycomb", 2, 0.0)])
 def test_model_matrices_match_jax(geometry, L, tp):
     lat = make_lattice(geometry, L, L)
     bonds = bonds_with_tp(geometry, tp)
@@ -74,9 +84,10 @@ def test_model_matrices_match_jax(geometry, L, tp):
         (jm.n_sites, jm.nt, jm.n_flavor, jm.det_power)
 
 
-def test_update_math_matches_jax(rng):
+@pytest.mark.parametrize("U", [4.0, 1.0, 8.0])
+def test_update_math_matches_jax(rng, U):
     lat = square_lattice(4, 4)
-    jm = AttractiveHubbard.build(lat, U=4.0, t=1.0, mu=-0.1, beta=4.0,
+    jm = AttractiveHubbard.build(lat, U=U, t=1.0, mu=-0.1, beta=4.0,
                                  nt=12, dtype=jnp.float64)
     tm = torch_model(jm)
     old = rng.integers(0, 4, 32)
@@ -99,15 +110,17 @@ def test_update_math_matches_jax(rng):
         rtol=1e-14)
 
 
+@pytest.mark.parametrize("L", [4, 2])
 @pytest.mark.parametrize("name", ["apply_B_left", "apply_B_right",
                                   "apply_invB_left", "apply_invB_right"])
-def test_kinetic_products_match_jax(rng, name):
-    lat = square_lattice(4, 4)
+def test_kinetic_products_match_jax(rng, name, L):
+    ns = L * L
+    lat = square_lattice(L, L)
     jm = AttractiveHubbard.build(lat, U=4.0, t=1.0, mu=-0.1, beta=4.0,
                                  nt=12, dtype=jnp.float64)
     tm = torch_model(jm)
-    fields = rng.integers(0, 4, (3, 16))
-    X = rng.standard_normal((3, 1, 16, 16))
+    fields = rng.integers(0, 4, (3, ns))
+    X = rng.standard_normal((3, 1, ns, ns))
     want = jax.vmap(lambda f, x: getattr(jkin, name)(jm, f, x))(
         jnp.asarray(fields), jnp.asarray(X))
     got = getattr(tkin, name)(tm, torch.as_tensor(fields),

@@ -10,7 +10,7 @@ import torch
 
 from dqmc_tpu.ops.qr_kernel import _cgs2_qr_impl, cgs2_qr_inv
 from dqmc_tpu_torch.ops import qr_kernel as tqr
-from torch_port_util import to_np
+from torch_port_util import (release_jax_programs, to_np)  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -39,22 +39,24 @@ def test_cgs2_twin_matches_jax_kernel_f64(rng, n):
                                    err_msg=name)
 
 
-def test_cgs2_twin_f32_quality(rng):
+@pytest.mark.parametrize("n", [64, 32, 96, 128])
+def test_cgs2_twin_f32_quality(rng, n):
     """tests/test_qr_kernel.py's thresholds: orthogonality < 2e-4,
     reconstruction < 5e-6, R upper triangular with a non-negative
     diagonal."""
-    A = _graded(rng, 4, 64)
+    A = _graded(rng, 4, n)
     Q, R = tqr.cgs2_qr(torch.as_tensor(A))
     Q, R = to_np(Q).astype(np.float64), to_np(R).astype(np.float64)
-    assert np.abs(Q.swapaxes(-1, -2) @ Q - np.eye(64)).max() < 2e-4
+    assert np.abs(Q.swapaxes(-1, -2) @ Q - np.eye(n)).max() < 2e-4
     assert np.abs(Q @ R - A.astype(np.float64)).max() < 5e-6
     assert np.abs(np.tril(R, -1)).max() == 0.0
     assert (np.diagonal(R, axis1=-2, axis2=-1) >= 0).all()
 
 
-def test_cgs2_twin_d_ladder_matches_householder(rng):
+@pytest.mark.parametrize("spread", [16.0, 4.0, 8.0, 12.0])
+def test_cgs2_twin_d_ladder_matches_householder(rng, spread):
     """|diag R| (the LDR d-ladder) to columnwise relative accuracy."""
-    A = _graded(rng, 2, 64, spread=16.0)
+    A = _graded(rng, 2, 64, spread=spread)
     _, R = tqr.cgs2_qr(torch.as_tensor(A))
     R64 = np.linalg.qr(A.astype(np.float64))[1]
     d = np.abs(np.diagonal(to_np(R).astype(np.float64), axis1=-2, axis2=-1))
@@ -62,7 +64,7 @@ def test_cgs2_twin_d_ladder_matches_householder(rng):
     assert (np.abs(d - d64) / d64).max() < 1e-4
 
 
-@pytest.mark.parametrize("n", [20, 36])
+@pytest.mark.parametrize("n", [20, 36, 1, 5, 31, 33, 50, 70, 100])
 def test_cgs2_padding_is_exact(rng, n):
     A = torch.as_tensor(rng.standard_normal((3, n, n)))
     Q, R, W = tqr.cgs2_qr_inv(A)
@@ -113,7 +115,13 @@ def test_cgs2_twin_padded_above_512(rng):
 @pytest.mark.parametrize("dtype,n,ok", [(torch.float32, 1024, True),
                                         (torch.float32, 1056, False),
                                         (torch.float64, 512, True),
-                                        (torch.float64, 544, False)])
+                                        (torch.float64, 544, False),
+                                        (torch.float32, 32, True),
+                                        (torch.float32, 992, True),
+                                        (torch.float32, 2048, False),
+                                        (torch.float64, 32, True),
+                                        (torch.float64, 480, True),
+                                        (torch.float64, 1024, False)])
 def test_cgs2_kernel_size_limit_by_dtype(dtype, n, ok):
     """The kernel stages a 32-row panel in shared memory: n <= 1024 in
     float32, n <= 512 in float64.  Sizes inside the limit pass the shape

@@ -19,33 +19,45 @@ from dqmc_tpu.engine import EngineConfig, init_state
 from dqmc_tpu.engine.fused import sweep_pair_fused
 from dqmc_tpu.engine.sweep import rebuild_stack_and_greens
 from dqmc_tpu.lattice import square_lattice
-from dqmc_tpu.models import AttractiveHubbard
+from dqmc_tpu.models import AttractiveHubbard, RepulsiveHubbard
 from dqmc_tpu_torch.engine import fused as tfused
 from dqmc_tpu_torch.engine import sweep as tsweep
 from dqmc_tpu_torch.engine.state import EngineConfig as TEngineConfig
 from dqmc_tpu_torch.engine.state import make_generators
 from dqmc_tpu_torch.models import AttractiveHubbard as TAttractiveHubbard
-from torch_port_util import jax_sweep_streams, to_np, torch_model, \
-    torch_states
+from torch_port_util import (  # noqa: F401
+    jax_sweep_streams,
+    release_jax_programs,
+    to_np,
+    torch_model,
+    torch_states)
 
 torch.set_num_threads(1)
 
 
-def _setup(W=2, L=4, beta=4.0, nt=12, n_stab=3, seed=0, U=4.0):
+def _setup(W=2, L=4, beta=4.0, nt=12, n_stab=3, seed=0, U=4.0,
+           repulsive_mu=None, **cfg_kw):
+    """``repulsive_mu``: None for the attractive model, else the repulsive
+    model's chemical potential."""
     lat = square_lattice(L, L)
-    model = AttractiveHubbard.build(lat, U=U, t=1.0, mu=-0.1, beta=beta,
-                                    nt=nt, dtype=jnp.float64)
-    cfg = EngineConfig(nt=nt, n_stab=n_stab)
+    if repulsive_mu is None:
+        model = AttractiveHubbard.build(lat, U=U, t=1.0, mu=-0.1, beta=beta,
+                                        nt=nt, dtype=jnp.float64)
+    else:
+        model = RepulsiveHubbard.build(lat, U=U, t=1.0, mu=repulsive_mu,
+                                       beta=beta, nt=nt, dtype=jnp.float64)
+    cfg = EngineConfig(nt=nt, n_stab=n_stab, **cfg_kw)
     keys = jax.random.split(jax.random.PRNGKey(seed), W)
     states = jax.vmap(lambda k: init_state(model, cfg, k))(keys)
     return model, cfg, states
 
 
-def _run_both(nt, n_stab, seed, n_pairs=2):
+def _run_both(nt, n_stab, seed, n_pairs=2, **kw):
     """n_pairs fused sweep pairs in both packages from one JAX state."""
-    model, cfg, states = _setup(nt=nt, n_stab=n_stab, seed=seed)
+    model, cfg, states = _setup(nt=nt, n_stab=n_stab, seed=seed, **kw)
     tmodel = torch_model(model)
-    tcfg = TEngineConfig(nt=nt, n_stab=n_stab)
+    tcfg = TEngineConfig(nt=nt, n_stab=n_stab, fused_update=cfg.fused_update,
+                         submatrix_rank=cfg.submatrix_rank)
     tstates = torch_states(states)
     keys = states.key
     out = []
@@ -107,6 +119,31 @@ def test_sweep_fused_ragged_matches_jax(ragged_pairs):
     """nt % n_stab != 0: the short tail block runs last forward, first
     backward, in both packages."""
     _assert_same_chain(*ragged_pairs[0])
+
+
+@pytest.mark.parametrize("mu,seed", [(0.0, 1), (-0.6, 2)])
+def test_sweep_pair_fused_two_flavors_matches_jax(mu, seed):
+    """The 2-flavor fused sweep (ragged: nt = 10, n_stab = 3) follows the
+    JAX package's chain: fields and signs identical, both flavors' G to
+    1e-9; half filling keeps every sign at +1."""
+    (js, ts), = _run_both(nt=10, n_stab=3, seed=seed, n_pairs=1,
+                          repulsive_mu=mu, beta=3.0)
+    _assert_same_chain(js, ts)
+    np.testing.assert_array_equal(to_np(ts.sign), np.asarray(js.sign))
+    assert _slot_gap(js.stack, ts.stack) < 1e-9
+    assert tuple(ts.G.shape) == (2, 2, 16, 16)
+    if mu == 0.0:
+        assert (to_np(ts.sign) == 1.0).all()
+
+
+@pytest.mark.parametrize("rank", [0, 8])
+def test_sweep_pair_fused_submatrix_matches_jax(rank):
+    """fused_update = submatrix at the default rank (32 -> 16 at ns = 16)
+    and at submatrix_rank = 8."""
+    (js, ts), = _run_both(nt=12, n_stab=3, seed=3, n_pairs=1,
+                          fused_update="submatrix", submatrix_rank=rank)
+    _assert_same_chain(js, ts)
+    assert _slot_gap(js.stack, ts.stack) < 1e-9
 
 
 def test_rebuild_stack_and_greens_matches_jax():

@@ -32,8 +32,12 @@ from dqmc_tpu_torch.engine.state import EngineConfig as TEngineConfig
 from dqmc_tpu_torch.engine.state import make_generators
 from dqmc_tpu_torch.models import AttractiveHubbard as TAttractiveHubbard
 from dqmc_tpu_torch.run import make_engine_config, use_fused_engine
-from torch_port_util import jax_per_slice_streams, to_np, torch_model, \
-    torch_states
+from torch_port_util import (  # noqa: F401
+    jax_per_slice_streams,
+    release_jax_programs,
+    to_np,
+    torch_model,
+    torch_states)
 
 torch.set_num_threads(1)
 
@@ -150,14 +154,19 @@ def test_engine_auto_follows_jax_rule(device, dtype, L):
     named here, nothing runs on it."""
     ns = L * L
     tdt = getattr(torch, dtype)
-    model = types.SimpleNamespace(n_sites=ns, n_flavor=1, det_power=2,
-                                  checkerboard=False,
-                                  expK=torch.zeros(1, dtype=tdt),
-                                  device=torch.device("cpu"))
-    want = (jax_supports_fused(model, EngineConfig(nt=8, n_stab=4))
+    for nfl, power, update in ((1, 2, "delayed"), (1, 2, "submatrix"),
+                               (2, 1, "delayed"), (2, 1, "submatrix")):
+        model = types.SimpleNamespace(n_sites=ns, n_flavor=nfl,
+                                      det_power=power, checkerboard=False,
+                                      expK=torch.zeros(1, dtype=tdt),
+                                      device=torch.device("cpu"))
+        want = (jax_supports_fused(model, EngineConfig(
+            nt=8, n_stab=4, fused_update=update))
             and device == "cuda" and dtype == "float32")
-    params = Parameters.from_string("[simulation]\nengine = auto\n")
-    assert use_fused_engine(params, model, torch.device(device), tdt) == want
+        params = Parameters.from_string("[simulation]\nengine = auto\n")
+        tcfg = TEngineConfig(nt=8, n_stab=4, fused_update=update)
+        assert use_fused_engine(params, model, torch.device(device), tdt,
+                                tcfg) == want
     for kind, forced in (("fused", True), ("slice", False)):
         params.set("simulation", "engine", kind)
         assert use_fused_engine(params, model, torch.device(device),
@@ -185,12 +194,17 @@ def test_make_engine_config(device, site_update, want):
 
 
 def test_fused_sweep_refuses_the_submatrix_scheme():
-    """fused_update = submatrix (#2c) is not ported: the fused sweep
-    raises instead of running the delayed scheme under its name."""
+    """fused_update = submatrix is single-flavor only (as in the JAX
+    package): for the 2-flavor model the fused sweep raises instead of
+    running the delayed scheme under its name; for one flavor it runs."""
     from dqmc_tpu_torch.engine.fused import sweep_fused
-    model = TAttractiveHubbard.build(square_lattice(2, 2), U=4.0, t=1.0,
-                                     mu=0.0, beta=1.0, nt=4)
+    from dqmc_tpu_torch.models import RepulsiveHubbard as TRepulsiveHubbard
+    kw = dict(U=4.0, t=1.0, mu=0.0, beta=1.0, nt=4)
     cfg = TEngineConfig(nt=4, n_stab=2, fused_update="submatrix")
+    model = TRepulsiveHubbard.build(square_lattice(2, 2), **kw)
     states = tsweep.init_state(model, cfg, make_generators(1, 1, "cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sweep_fused(model, cfg, states)
+    model = TAttractiveHubbard.build(square_lattice(2, 2), **kw)
+    states = tsweep.init_state(model, cfg, make_generators(1, 1, "cpu"))
+    assert sweep_fused(model, cfg, states).fields.shape == (1, 4, 4)

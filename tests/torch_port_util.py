@@ -3,22 +3,50 @@ JAX model, JAX walker states and JAX random streams across as numpy."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from dqmc_tpu.engine.sweep import draw_slice_randoms
 from dqmc_tpu_torch.engine.state import model_from_numpy, \
     walker_state_from_numpy
 
+# XLA:CPU maps three memory regions for every executable it holds, and a
+# process may hold vm.max_map_count of them (65530 by default): one worker
+# that ran the eager df32 tests arrives here with most of them taken, and
+# the next compile past the limit kills it.  The JAX references below are
+# small, so recompiling them costs little.
+_MAPS_HIGH_WATER = 30000
+
+
+def _n_memory_maps():
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return 0
+
+
+@pytest.fixture(autouse=True)
+def release_jax_programs():
+    """Drop JAX's compiled programs before a test when this process holds
+    more than _MAPS_HIGH_WATER memory maps.  A test module gets this by
+    importing the name."""
+    if _n_memory_maps() > _MAPS_HIGH_WATER:
+        jax.clear_caches()
+    yield
+
 
 def torch_model(model):
-    """The port's model from a JAX AttractiveHubbard (same arrays)."""
+    """The port's model from a JAX AttractiveHubbard or RepulsiveHubbard
+    (same arrays)."""
     return model_from_numpy(
         n_sites=model.n_sites, nt=model.nt,
         expK=np.asarray(model.expK), invexpK=np.asarray(model.invexpK),
         expK_half=np.asarray(model.expK_half),
         invexpK_half=np.asarray(model.invexpK_half),
         g=np.asarray(model.g), alpha=np.asarray(model.alpha),
-        beta=np.asarray(model.beta))
+        beta=np.asarray(model.beta), n_flavor=model.n_flavor,
+        det_power=model.det_power)
 
 
 def torch_states(states):
