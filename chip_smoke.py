@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py                 # every phase (8 to 9 minutes)
+    python3 chip_smoke.py                 # every phase (10 to 12 minutes)
     python3 chip_smoke.py --phases 1,6    # a subset, for iterating
     python3 chip_smoke.py --registers     # ptxas registers per kernel
 
@@ -32,7 +32,7 @@ non-zero):
    kernel timed alone at the stretch shape;
 7. the stretch configuration (32x32, beta=16, nt=320, n_stab=5, U=4, W=4,
    float32) through run_simulation, with the default site update (#3) and
-   with site_update = submatrix (#5);
+   with site_update = submatrix (#5), one pair each;
 8. examples/basic through the per-slice engine with site_update = scan
    (#6) and delayed (#3);
 9. under torch.profiler, device time by kernel and the device's idle
@@ -52,10 +52,20 @@ non-zero):
     doped run (U=6, mu=-0.8) that prints the mean sign;
 12. the headline shape with model = repulsive, three timed sweep pairs on
     the fused engine;
-13. examples/basic with fused_update = submatrix (#2c) on the fused engine.
+13. examples/basic with fused_update = submatrix (#2c) on the fused engine;
+14. the multiword panel kernels #7 (df32) and #8 (tf32) against their plain
+    twin, bit for bit, at (16, 32, 256), (16, 32, 64) and (4, 32, 512), each
+    timed beside its twin, its bound and torch.linalg.qr in float64;
+15. the df32 headline (16x16, beta=8, nt=160, n_stab=5, W=16, dtype =
+    df32) through run_simulation (#3, K1, #7), G_df of the final fields
+    against the native float64 rebuild (< 1e-7), two blocks profiled;
+16. examples/tpu_production's tier split (the fused float32 engine, every
+    measurement rebuilt at tf32 through #8, n_stab = auto; the unequal-time,
+    checkpoint and spool keys off): the tier G against the native float64
+    rebuild (< 1e-9); then a short measure_precision = df32 run (#7).
 
-Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13) sets the
-launch counters to 0 just before and reads them just after.  The line
+Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13, 15, 16) sets
+the launch counters to 0 just before and reads them just after.  The line
 before the last is one JSON object describing every kernel; the last line
 is the result object.  Tolerances are stated where they are checked.
 """
@@ -86,26 +96,28 @@ SITE_SHAPES = ((4, 6, 4), (4, 32, 32))
 SITE_SHAPES_2F = ((4, 6, 4), (32, 8, 32), (4, 32, 32))
 
 # the card's peaks (NVIDIA H100 SXM data sheet): FP32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, int8 in the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 # launches of every main-path run (phases 4, 5, 7, 8)
 TOTALS = Counter()
 
 
-def bound(ops: float, nbytes: float):
+def bound(ops: float, nbytes: float, ops_int8: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for ops
-    float32 operations and nbytes of traffic (each input read once, each
-    output written once)."""
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    float32 operations, ops_int8 int8 operations and nbytes of traffic
+    (each input read once, each output written once)."""
+    t_ops = ops / PEAK_F32 + ops_int8 / PEAK_INT8
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def record(report, name, *, max_abs_err, ms, plain_ms, ops, nbytes,
-           library_ms=None):
-    bound_ms, bound_by = bound(ops, nbytes)
+           library_ms=None, ops_int8=0.0):
+    bound_ms, bound_by = bound(ops, nbytes, ops_int8)
     report[name] = dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms)
@@ -679,7 +691,7 @@ mu = 0.0
 beta = 16.0
 nt = 320
 n_stab = 5
-n_therms = 1
+n_therms = 0
 n_bins = 1
 n_sweeps = 1
 dtype = float32
@@ -697,9 +709,9 @@ def phase_stretch(torch):
     sub = ("submatrix_decide", "submatrix_prep", "submatrix_flush")
     run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 n_stab=5 W=4 "
                "f32, engine = auto (per slice, site_update = pallas: #3), "
-               "1 + 1 pairs", ("cgs2_qr",) + site, "phase 7")
+               "0 + 1 pairs", ("cgs2_qr",) + site, "phase 7")
     run_params(torch, STRETCH + "[simulation]\nsite_update = submatrix\n",
-               "stretch, site_update = submatrix (#5), 1 + 1 pairs",
+               "stretch, site_update = submatrix (#5), 0 + 1 pairs",
                ("cgs2_qr",) + sub, "phase 7")
 
 
@@ -721,13 +733,16 @@ def phase_basic_slice(torch):
                ("delayed_sites", "delayed_flush", "cgs2_qr"), "phase 8")
 
 
-def _profiled(torch, label, step, states, n_pairs):
+def _profiled(torch, label, step, states, n_pairs, phase="phase 9",
+              cpu=True, unit="sweep pair(s)"):
     """``n_pairs`` sweep pairs under torch.profiler: device time by kernel
-    and the device's idle share of their wall time."""
+    and the device's idle share of their wall time.  ``cpu=False`` records
+    the device's activity alone (a df32 pair launches ~10^6 operations, and
+    the host's records would take minutes to aggregate)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_pairs):
             states = step(states)
@@ -741,11 +756,12 @@ def _profiled(torch, label, step, states, n_pairs):
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
                    and dev(e) > 0), key=dev, reverse=True)
     busy = sum(dev(e) for e in rows) / 1e6
-    say(f"phase 9: {label}, {n_pairs} profiled sweep pair(s): wall "
+    say(f"{phase}: {label}, {n_pairs} profiled {unit}: wall "
         f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
-        f"{1.0 - busy / wall:.4f}")
+        f"{1.0 - busy / wall:.4f}, {sum(e.count for e in rows)} device "
+        f"operations")
     for e in rows[:8]:
-        say(f"phase 9:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
+        say(f"{phase}:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
             f"({dev(e) / 1e6 / busy:6.1%}) {e.count} calls")
 
 
@@ -1345,6 +1361,218 @@ def phase_fused_submatrix(torch):
         fail("fused submatrix: steady self-check above the f32 err_warn")
 
 
+# #7 and #8 against their twins: the multiword engines' and tiers' panel
+# shape at the headline (B = 16 walkers, n = 256), examples' n = 64, and the
+# kernels' largest n = 512
+PANEL_SHAPES = ((16, 256), (16, 64), (4, 512))
+# float32 operations per element per column of one panel, from the kernel's
+# loops: four digit extractions (NP x (4 + one multiword subtraction)), two
+# updates (NP-term recombination + subtraction) and the normalization; the
+# multiword add costs 20 (df32) / 45 (tf32) float32 operations, the multiply
+# 26 / 80
+_MW_ADD = {2: 20, 3: 45}
+_MW_MUL = {2: 26, 3: 80}
+
+
+def panel_inputs(torch, gen, nm, B, n):
+    """A graded multiword panel (B, 32, n): rows = columns of A scaled over
+    e^+-6, words split from float64."""
+    base = torch.randn((B, 32, n), generator=gen, device="cuda",
+                       dtype=torch.float64)
+    grade = torch.exp((torch.rand((B, 32, 1), generator=gen, device="cuda",
+                                  dtype=torch.float64) - 0.5) * 12.0)
+    return nm.from_f64(base * grade)
+
+
+def phase_mw_panels(torch, gen, report):
+    """#7 and #8 against their plain twins on the card (bit for bit), each
+    timed at the headline shape beside its twin, its bound and
+    torch.linalg.qr in float64 of the same panel (and of the whole
+    (16, 256, 256) matrix, printed)."""
+    from dqmc_tpu_torch.ops import df_qr_kernel as dk, df32, tf32
+    for name, nm, words in (("df_qr_panel", df32, 2),
+                            ("tf_qr_panel", tf32, 3)):
+        npl = nm.N_PLANES
+        for B, n in PANEL_SHAPES:
+            P = panel_inputs(torch, gen, nm, B, n)
+            Qk, Rk = dk.panel_cuda(P, words)
+            Qp, Rp = dk.panel_plain(P, nm)
+            torch.cuda.synchronize()
+            diff = sum(int((a != b).sum()) for a, b in
+                       zip(tuple(Qk) + tuple(Rk), tuple(Qp) + tuple(Rp)))
+            gap = max(float((nm.to_f64(a) - nm.to_f64(b)).abs().max())
+                      for a, b in ((Qk, Qp), (Rk, Rp)))
+            # orthonormality of the multiword Q rows, in float64
+            q64 = nm.to_f64(Qk)
+            orth = float((q64 @ q64.mT - torch.eye(
+                32, dtype=torch.float64, device="cuda")).abs().max())
+            say(f"phase 14: #{7 if words == 2 else 8} {name} ({B}, 32, {n}): "
+                f"words differing from the twin {diff} (bit for bit: 0), "
+                f"max |d| {gap:.3e}, |Q Q^T - I| {orth:.3e}")
+            if diff:
+                fail(f"{name} disagrees with its plain twin at ({B}, {n})")
+            if (B, n) != PANEL_SHAPES[0]:
+                continue
+            ms = cuda_ms(lambda: dk.panel_cuda(P, words), 5)
+            plain_ms = cuda_ms(lambda: dk.panel_plain(P, nm), 1)
+            A64 = nm.to_f64(P).mT.contiguous()
+            lib_ms = cuda_ms(lambda: torch.linalg.qr(A64), 5)
+            full = torch.randn((B, n, n), generator=gen, device="cuda",
+                               dtype=torch.float64)
+            full_ms = cuda_ms(lambda: torch.linalg.qr(full), 3)
+            pairs = npl * npl + npl * (npl + 1) // 2
+            ops_int8 = 2 * B * n * (2 * 496 * pairs
+                                    + 32 * npl * (npl + 1) // 2)
+            per_elem = (4 * npl * (4 + _MW_ADD[words])
+                        + 2 * (npl * (2 + _MW_ADD[words]) + words
+                               + _MW_ADD[words]) + _MW_MUL[words])
+            record(report, name, max_abs_err=gap, ms=ms, plain_ms=plain_ms,
+                   ops=B * 32 * n * per_elem, ops_int8=ops_int8,
+                   nbytes=4 * words * B * (2 * 32 * n + 32 * 32),
+                   library_ms=lib_ms)
+            r = report[name]
+            say(f"phase 14: {name} ({B}, 32, {n}): kernel {ms:.3f} ms per "
+                f"panel, twin {plain_ms:.1f} ms, torch.linalg.qr float64 of "
+                f"the panel {lib_ms:.3f} ms (of the whole ({B}, {n}, {n}): "
+                f"{full_ms:.3f} ms), bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+
+
+HEADLINE_DF32 = """
+[Lattice]
+L1 = 16
+L2 = 16
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 8.0
+nt = 160
+n_stab = 5
+n_therms = 1
+n_bins = 1
+n_sweeps = 1
+dtype = df32
+seed = 42
+[walkers]
+n_walkers = 16
+"""
+
+
+def _f64_rebuild(torch, params, fields, symmetric=False):
+    """G(0, 0) of the fields (W, nt, ns) from the native float64 chain at
+    n_stab = 1 (the most stabilizations), half-warped when asked."""
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.engine.sweep import (half_warp,
+                                             rebuild_stack_and_greens)
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    L = params.get_int("Lattice", "L1")
+    model = AttractiveHubbard.from_params(params, square_lattice(L, L),
+                                          dtype=torch.float64, device="cuda")
+    cfg = EngineConfig(nt=params.get_int("simulation", "nt"), n_stab=1)
+    _, G, _ = rebuild_stack_and_greens(model, cfg, fields)
+    return (half_warp(model, G) if symmetric else G), model
+
+
+def phase_df32_headline(torch):
+    """bench.py's df32 companion of the headline (16x16, beta=8, nt=160,
+    n_stab=5, W=16, dtype = df32) through run_simulation: #3 site updates,
+    K1 in the refined solves, #7 in every fold; 1 + 1 pairs.  G_df of the
+    final fields against the native float64 rebuild; two blocks
+    profiled."""
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.ops import df32
+    summary = run_params(
+        torch, HEADLINE_DF32, "df32 headline 16x16 beta=8 nt=160 n_stab=5 "
+        "W=16, dtype = df32, 1 + 1 pairs",
+        ("df_qr_panel", "cgs2_qr", "delayed_sites", "delayed_flush"),
+        "phase 15")
+    G64, _ = _f64_rebuild(torch, Parameters.from_string(HEADLINE_DF32),
+                          summary.states.fields)
+    gap = float((df32.to_f64(summary.states.G_df) - G64).abs().max())
+    say(f"phase 15: df32 headline: walker-sweep-pairs/s "
+        f"{summary.sweeps_per_sec:.4f}, acceptance {summary.acc_rate:.4f}, "
+        f"steady self-check max {summary.max_precision_error:.3e} (the "
+        f"float32 drift between stabilizations), max |G_df - G_f64| of the "
+        f"final fields {gap:.3e} (< 1e-7)")
+    if not gap < 1e-7:
+        fail("df32 headline: G_df disagrees with the float64 rebuild")
+    # where a df32 pair's time goes, per block (every kernel is warm from
+    # the run): a forward sweep of two blocks of 5 slices at the headline's
+    # width and dtau (beta = 0.5, nt = 10), device activity only -- a whole
+    # headline sweep is ~10^6 device operations, whose records take
+    # minutes to aggregate
+    from dqmc_tpu_torch.engine.df_sweep import (df_aux_build, df_sweep,
+                                                init_state_df)
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    params = Parameters.from_string(HEADLINE_DF32 + "[simulation]\n"
+                                    "beta = 0.5\nnt = 10\n")
+    lat = square_lattice(16, 16)
+    model = AttractiveHubbard.from_params(params, lat, dtype=torch.float32,
+                                          device="cuda")
+    aux = df_aux_build(lat, U=4.0, t=1.0, mu=0.0, beta=0.5, nt=10,
+                       device="cuda")
+    cfg = EngineConfig(nt=10, n_stab=5, use_pallas=True)
+    states = init_state_df(model, aux, cfg, make_generators(42, 16, "cuda"))
+    _profiled(torch, "df32, headline width and dtau",
+              lambda s: df_sweep(model, aux, cfg, s, forward=True), states,
+              1, phase="phase 15", cpu=False,
+              unit="forward sweep of 2 blocks (1/32 of a headline pair)")
+
+
+def _production_params(extra: str = ""):
+    """examples/tpu_production/parameters.in with the keys the port takes
+    later (unequal-time measurement, checkpoints, the spool sink) off and
+    the sweep counts cut."""
+    from dqmc_tpu_torch.config import Parameters
+    params = Parameters(str(REPO / "examples" / "tpu_production" /
+                            "parameters.in"))
+    params.set("simulation", "isMeasureUnequalTime", "false")
+    params.set("simulation", "checkpoint_every", 0)
+    params.set("io", "sink", "h5")
+    params.set("walkers", "n_devices", 1)
+    for key, val in dict(n_therms=4, n_bins=1, n_sweeps=2).items():
+        params.set("simulation", key, val)
+    return Parameters.from_string(params.dumps() + extra)
+
+
+def phase_tier_split(torch):
+    """examples/tpu_production's tier split: the fused float32 engine
+    (K2 + K1) samples, every measurement rebuilds G at tf32 (#8 in every
+    fold, stride 2x the engine's), n_stab = auto; 4 + 1x2 pairs.  The tier
+    G of the final fields against the native float64 rebuild; then a short
+    measure_precision = df32 run of the same chain (#7 through the
+    tier)."""
+    from dqmc_tpu_torch.engine.parity import measurement_greens_fn
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.ops import tf32
+    params = _production_params()
+    summary = run_params(
+        torch, params.dumps(), "tpu_production 16x16 beta=8 nt=160 W=16, "
+        "float32 fused engine, measure_precision = tf32, symmetric, n_stab = "
+        "auto, 4 + 1x2 pairs", ("tf_qr_panel", "cgs2_qr", "fused_wrap",
+                                "fused_sites"), "phase 16")
+    G64, model64 = _f64_rebuild(torch, params, summary.states.fields,
+                                symmetric=True)
+    cfg = EngineConfig(nt=160, n_stab=summary.n_stab)
+    fn = measurement_greens_fn(model64, cfg, tf32, symmetric=True)
+    Gt = fn(summary.states)
+    gap = float((Gt - G64).abs().max())
+    say(f"phase 16: tf32 tier at rebuild stride {fn.n_stab} (engine n_stab "
+        f"{summary.n_stab}): max |G_tf32 - G_f64| of the final fields "
+        f"{gap:.3e} (< 1e-9)")
+    if not gap < 1e-9:
+        fail("tf32 tier G disagrees with the float64 rebuild")
+    run_params(torch, _production_params(
+        "[simulation]\nmeasure_precision = df32\nn_therms = 0\nn_sweeps = 1"
+        "\n").dumps(), "tpu_production with measure_precision = df32, 0 + "
+        "1x1 pairs", ("df_qr_panel", "cgs2_qr"), "phase 16")
+
+
 def print_registers() -> None:
     """ptxas's registers and spill bytes of every kernel instantiation,
     from one ``nvcc -Xptxas -v`` per source with the build's flags."""
@@ -1353,7 +1581,7 @@ def print_registers() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for src in _cuda.sources():
             out = subprocess.run(
-                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                [_cuda._nvcc(), *_cuda.nvcc_flags(src), "-Xptxas", "-v", "-c",
                  "-o", str(Path(tmp) / (src.stem + ".o")), str(src)],
                 capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
@@ -1396,8 +1624,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "dqmc_tpu/ops/kernels.py:584"),
     "submatrix_flush": ("dqmc_tpu_torch/csrc/submatrix_update.cu",
                         "dqmc_tpu/ops/kernels.py:584"),
+    "df_qr_panel": ("dqmc_tpu_torch/csrc/mw_qr_panel.cu",
+                    "dqmc_tpu/ops/df_qr_kernel.py:154"),
+    "tf_qr_panel": ("dqmc_tpu_torch/csrc/mw_qr_panel.cu",
+                    "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 
 
 def main(argv=None) -> None:
@@ -1439,6 +1671,8 @@ def main(argv=None) -> None:
     torch.set_float32_matmul_precision("highest")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
+    gen14 = torch.Generator(device="cuda")
+    gen14.manual_seed(14)
     report = {}
     steps = ((2, lambda: phase_qr(torch, gen, report)),
              (3, lambda: phase_block(torch, gen, report)),
@@ -1451,7 +1685,10 @@ def main(argv=None) -> None:
              (10, lambda: phase_new_kernels(torch, report)),
              (11, lambda: phase_repulsive(torch)),
              (12, lambda: phase_repulsive_headline(torch, card)),
-             (13, lambda: phase_fused_submatrix(torch)))
+             (13, lambda: phase_fused_submatrix(torch)),
+             (14, lambda: phase_mw_panels(torch, gen14, report)),
+             (15, lambda: phase_df32_headline(torch)),
+             (16, lambda: phase_tier_split(torch)))
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -2,9 +2,12 @@
 
 The sources in ``csrc/*.cu`` expose a plain C interface.  At first use each
 is compiled with its own ``nvcc`` process for ``sm_90a`` (all started
-together), and the objects are linked into one shared library under
-``_build/`` (named by a hash of the sources, headers and flags, so an edit
-never loads a stale build) and loaded with ctypes.  Importing this module
+together; ``SOURCE_FLAGS`` adds a source's own flags, such as
+``--fmad=false`` for the multiword kernels, whose error-free
+transformations a fused multiply-add would break), and the objects are
+linked into one shared library under ``_build/`` (named by a hash of the
+sources, headers and flags, so an edit never loads a stale build) and
+loaded with ctypes.  Importing this module
 needs no CUDA toolchain; only :func:`lib` (and so every kernel launch)
 does.
 
@@ -32,19 +35,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"mw_qr_panel.cu": ("--fmad=false",)}
 
 # kernel name -> launches since the last reset
 LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0,
             "fused_sites_2f": 0, "fused_sites_sub": 0,
             "delayed_sites": 0, "delayed_sites_2f": 0, "delayed_flush": 0,
             "rank1_sites": 0, "submatrix_decide": 0, "submatrix_prep": 0,
-            "submatrix_flush": 0}
+            "submatrix_flush": 0, "df_qr_panel": 0, "tf_qr_panel": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SITE_LOOP = (_P, _P, _LL, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P)
 _DELAYED_SITES = (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I, _I,
                   _I, _P)
-_SIGNATURES = {
+_SIGNATURES = {  # each has a _f32 and a _f64 entry point
     "dqmc_cgs2_qr": (_P, _P, _P, _P, _P, _I, _I, _P),
     "dqmc_wrap_gemm": (_P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P),
     "dqmc_site_loop": _SITE_LOOP,
@@ -60,6 +64,10 @@ _SIGNATURES = {
                             _P),
     "dqmc_submatrix_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
+_FLOAT32_SIGNATURES = {  # float32-only entry points, no suffix
+    "dqmc_df_qr_panel": (_P, _P, _P, _I, _I, _P),
+    "dqmc_tf_qr_panel": (_P, _P, _P, _I, _I, _P),
+}
 
 _lib = None
 _lock = threading.Lock()
@@ -74,10 +82,16 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def nvcc_flags(src: Path) -> tuple:
+    """The flags one source is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(src.name, ())
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
+        h.update(" ".join(nvcc_flags(src)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdqmc_kernels_{h.hexdigest()[:16]}.so"
 
@@ -115,7 +129,7 @@ def build() -> Path:
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        _run_all([[nvcc, *nvcc_flags(src), "-c", "-o", str(obj), str(src)]
                   for src, obj in zip(sources(), objs)])
         tmp = out.with_name(f"{tag}.so.tmp")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
@@ -132,11 +146,12 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for base, argtypes in _SIGNATURES.items():
-                for suffix in ("_f32", "_f64"):
-                    fn = getattr(handle, base + suffix)
-                    fn.argtypes = list(argtypes)
-                    fn.restype = ctypes.c_int
+            names = {base + sfx: args for base, args in _SIGNATURES.items()
+                     for sfx in ("_f32", "_f64")}
+            for name, argtypes in {**names, **_FLOAT32_SIGNATURES}.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
             handle.dqmc_error_string.argtypes = [ctypes.c_int]
             handle.dqmc_error_string.restype = ctypes.c_char_p
             _lib = handle

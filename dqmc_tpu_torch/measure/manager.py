@@ -18,8 +18,10 @@ walkers' signs: every observable accumulates sign-weighted (<O s>) and a
 ``sign`` scalar records <s>, so the analysis can reweight <O> = <O s>/<s>.
 Sign-free runs write no ``sign`` and are byte-identical to the reference.
 
-Unequal-time observables and the opt-in charge set are not ported yet
-(ROADMAP: modules to port, engine/uneqtime.py).
+With a multiword measurement tier (``measure_precision = df32 | tf32``)
+:meth:`measurement_greens` hands the observables the tier's float64 G
+instead of the engine's.  Unequal-time observables and the opt-in charge
+set are not ported yet (ROADMAP: modules to port, engine/uneqtime.py).
 """
 
 from __future__ import annotations
@@ -86,6 +88,17 @@ class MeasurementManager:
             out[("eq", name)] = site_to_r_batched(fn(G, self.ctx),
                                                   self.ctx) * s
         return out
+
+    def measurement_greens(self, states, *, greens_fn=None, warp_fn=None):
+        """The equal-time measurement input of a walker batch (the JAX
+        manager's make_measured_iter): the measurement tier's G when
+        ``greens_fn`` is given (``engine/parity.measurement_greens_fn``:
+        float64, rebuilt from the fields, already in the measurement basis,
+        so ``warp_fn`` is not applied to it), else the engine's G,
+        half-warped by ``warp_fn`` when given."""
+        if greens_fn is not None:
+            return greens_fn(states)
+        return warp_fn(states.G) if warp_fn is not None else states.G
 
     def zero_acc(self, G: torch.Tensor,
                  signs: torch.Tensor | None = None

@@ -13,6 +13,14 @@ spinZZCorr and spinXXCorr with ``measure_spin = true``, sign-weighted with
 a ``sign`` scalar for the repulsive model, binned HDF5 output that
 ``python -m dqmc_tpu.analysis`` reads and reweights.
 
+``[simulation] dtype = df32`` runs the hybrid double-float32 engine
+(``engine/df_sweep.py``: the per-slice engine's float32 site updates and
+wraps, df32 block products, folds and stabilized inverses, with panel
+kernel #7 in every fold).  ``measure_precision = df32 | tf32`` measures
+every equal-time observable on a Green's function rebuilt from the fields
+at that multiword grade (``engine/parity.py``; #7 or #8 in every fold),
+whatever the sampling engine; ``measure_n_stab`` sets the rebuild's stride.
+
 ``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
 when it supports the model (ns <= 512, dense kinetics, rank-k buffers that
 fit one CTA's shared memory) and the per-slice engine otherwise, as the JAX
@@ -39,14 +47,18 @@ import time
 import torch
 
 from dqmc_tpu_torch.config import Parameters
+from dqmc_tpu_torch.engine.df_sweep import (df_aux_build, df_sweep_pair,
+                                            init_state_df, rebuild_stack_df)
 from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
 from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
 from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
                                          rebuild_stack_and_greens,
                                          reset_error_stats, sweep_pair)
-from dqmc_tpu_torch.lattice import make_lattice
+from dqmc_tpu_torch.engine.parity import measurement_greens_fn
+from dqmc_tpu_torch.lattice import bonds_with_tp, make_lattice
 from dqmc_tpu_torch.measure.manager import MeasurementManager
 from dqmc_tpu_torch.models import MODEL_REGISTRY
+from dqmc_tpu_torch.ops import df32, tf32
 
 
 def _unported(params: Parameters):
@@ -57,11 +69,6 @@ def _unported(params: Parameters):
             (get_b("simulation", "isMeasureUnequalTime", False),
              "isMeasureUnequalTime = true (and with it the tau-resolved "
              "spin and charge sets)", "slice 2, engine/uneqtime.py"),
-            (get_s("simulation", "dtype", "") in ("df32", "df"),
-             "dtype = df32", "slice 4, the multiword engines"),
-            (get_s("simulation", "measure_precision", "engine") != "engine",
-             "measure_precision other than engine",
-             "slice 4, the multiword tiers"),
             (get_b("ParallelTempering", "enabled", False),
              "parallel tempering", "slice 3, parallel/tempering.py"),
             (get_i("walkers", "n_devices", 0) > 1, "n_devices > 1",
@@ -88,14 +95,19 @@ def _unported(params: Parameters):
 
 
 def _resolve_dtype(params: Parameters, device: torch.device):
+    """(dtype, df_mode) from [simulation] dtype: df32 runs the hybrid
+    double-float32 engine on float32 kernels."""
     name = params.get_str("simulation", "dtype", "")
+    if name in ("df32", "df"):
+        return torch.float32, True
     if name in ("float32", "f32"):
-        return torch.float32
+        return torch.float32, False
     if name in ("float64", "f64"):
-        return torch.float64
+        return torch.float64, False
     if name:
-        raise ValueError(f"[simulation] dtype {name!r}: float32 or float64")
-    return torch.float32 if device.type == "cuda" else torch.float64
+        raise ValueError(f"[simulation] dtype {name!r}: float32, float64 "
+                         f"or df32")
+    return (torch.float32 if device.type == "cuda" else torch.float64), False
 
 
 def _parse_n_stab(params: Parameters):
@@ -172,6 +184,8 @@ class RunSummary:
     observables: dict = dataclasses.field(default_factory=dict)
     # each walker's Metropolis sign at the end (all +1 for sign-free models)
     walker_signs: list = dataclasses.field(default_factory=list)
+    # the final walker states (WalkerState, or DFWalkerState for df32)
+    states: object = None
 
 
 def _stats(states) -> dict:
@@ -207,7 +221,12 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     torch.set_float32_matmul_precision("highest")
     log = print if verbose else (lambda *a, **k: None)
 
-    dtype = _resolve_dtype(params, device)
+    dtype, df_mode = _resolve_dtype(params, device)
+    measure_prec = params.get_str("simulation", "measure_precision",
+                                  "engine")
+    if measure_prec not in ("engine", "tf32", "df32"):
+        raise ValueError(f"[simulation] measure_precision must be engine, "
+                         f"tf32 or df32, got {measure_prec!r}")
     n_sweeps = params.get_int("simulation", "n_sweeps")
     n_therms = params.get_int("simulation", "n_therms")
     n_bins = params.get_int("simulation", "n_bins")
@@ -226,17 +245,33 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"[hubbard] model {model_name!r}: "
                          + " or ".join(sorted(MODEL_REGISTRY)))
-    model = MODEL_REGISTRY[model_name].from_params(params, lat, dtype=dtype,
-                                                   device=device)
+    model_cls = MODEL_REGISTRY[model_name]
+    model = model_cls.from_params(params, lat, dtype=dtype, device=device)
     signed = model.det_power == 1
     cfg = make_engine_config(params, device, n_stab)
-    fused = use_fused_engine(params, model, device, dtype, cfg)
+    fused = not df_mode and use_fused_engine(params, model, device, dtype,
+                                             cfg)
     step = sweep_pair_fused if fused else sweep_pair
     log(f"Standard DQMC run: {lat.L1}x{lat.L2} lattice, "
         f"beta={float(model.beta)}, nt={nt}, {n_walkers} walkers, "
-        f"dtype={str(dtype).replace('torch.', '')}, device={device}")
+        f"dtype={'df32' if df_mode else str(dtype).replace('torch.', '')}, "
+        f"device={device}")
     flavors = f"{model.n_flavor} flavor" + "s" * (model.n_flavor > 1)
-    if fused:
+    if df_mode:
+        aux = df_aux_build(
+            lat, U=params.get_float("hubbard", "U"),
+            t=params.get_float("hubbard", "t"),
+            mu=params.get_float("hubbard", "mu"), beta=float(model.beta),
+            nt=nt, bonds=bonds_with_tp(
+                params.get_str("Lattice", "geometry", "square"),
+                params.get_float("hubbard", "tp", 0.0)),
+            n_flavor=model.n_flavor, device=device)
+
+        def step(model, cfg, states):
+            return df_sweep_pair(model, aux, cfg, states)
+        log("Engine: df32 hybrid (f32 kernels, double-float32 "
+            "stabilization)")
+    elif fused:
         log(f"Engine: fused block (wrap + {cfg.fused_update} site-loop "
             f"kernels, {flavors})")
     else:
@@ -247,7 +282,9 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         log(f"Engine: per slice ({scheme} site update, {order} visit "
             f"order, {flavors})")
 
-    states = init_state(model, cfg, make_generators(seed, n_walkers, device))
+    gens = make_generators(seed, n_walkers, device)
+    states = (init_state_df(model, aux, cfg, gens) if df_mode
+              else init_state(model, cfg, gens))
     manager = MeasurementManager(lat, n_walkers=n_walkers, out_dir=out_dir,
                                  device=device)
     manager.add_defaults()
@@ -264,10 +301,34 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     def reseat(states, cfg):
         """Rebuild stack + G from the fields under a new n_stab (the chain
         itself -- fields, generators, signs -- is untouched)."""
+        if df_mode:
+            stack, G_df, log_det = rebuild_stack_df(aux, cfg, states.fields)
+            return dataclasses.replace(states, G=G_df.hi, G_df=G_df,
+                                       stack=stack, log_det_M=log_det)
         stack, G, log_det = rebuild_stack_and_greens(model, cfg,
                                                      states.fields)
         return dataclasses.replace(states, G=G, stack=stack,
                                    log_det_M=log_det)
+
+    model64 = None
+    meas_stab = params.get_int("simulation", "measure_n_stab", 0)
+
+    def measurement_tier(cfg):
+        """The multiword greens_fn for ``measure_precision`` (None for
+        engine), rebuilt whenever n_stab changes."""
+        nonlocal model64
+        if measure_prec == "engine":
+            return None
+        if model64 is None:
+            model64 = model_cls.from_params(params, lat, dtype=torch.float64,
+                                            device=device)
+        fn = measurement_greens_fn(
+            model64, cfg, tf32 if measure_prec == "tf32" else df32,
+            symmetric=symmetric, n_stab=meas_stab if meas_stab > 0 else None)
+        log(f"Measurement tier: equal-time G rebuilt at {measure_prec} "
+            f"({'<1e-10' if measure_prec == 'tf32' else '~1e-8'} "
+            f"fixed-field accuracy)")
+        return fn
 
     def chunk_err_mean(states):
         s = _stats(states)
@@ -313,11 +374,16 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     states = reset_error_stats(states)
 
     t0 = time.perf_counter()
+    greens_fn = measurement_tier(cfg)
+    warp = (lambda G: half_warp(model, G)) if symmetric else None
+    meas_dtype = torch.float64 if greens_fn is not None else dtype
     for ibin in range(n_bins):
-        acc = manager.zero_acc(states.G, states.sign if signed else None)
+        acc = manager.zero_acc(states.G.to(meas_dtype),
+                               states.sign if signed else None)
         for _ in range(n_sweeps):
             states = step(model, cfg, states)
-            G = half_warp(model, states.G) if symmetric else states.G
+            G = manager.measurement_greens(states, greens_fn=greens_fn,
+                                           warp_fn=warp)
             signs = states.sign if signed else None
             for key, v in manager.increments(G, signs).items():
                 acc[key] += v
@@ -338,6 +404,7 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
                     f"exceeds warn {err_warn:.0e} -> n_stab = "
                     f"{cfg.n_stab}, stack reseated")
                 states = reset_error_stats(reseat(states, cfg))
+                greens_fn = measurement_tier(cfg)
                 warned = False
     _sync(device)
     dt_meas = time.perf_counter() - t0
@@ -369,7 +436,7 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         max_precision_error=err_max, mean_precision_error=err_mean,
         therm_max_precision_error=therm_err_max, n_stab=cfg.n_stab,
         device=str(device), observables=observables,
-        walker_signs=states.sign.tolist())
+        walker_signs=states.sign.tolist(), states=states)
 
 
 def main(argv=None) -> RunSummary:

@@ -226,3 +226,43 @@ def test_two_flavor_site_update_kernel_matches_twin_f64(gen, shared):
         assert torch.equal(sk, sp)
         assert bool((sp == -1.0).any()), "no sign flip: reseed"
         assert float((Gk - Gp).abs().max() / Gp.abs().max()) < tol
+
+
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("words", [2, 3])
+def test_mw_panel_kernels_match_twin(gen, words, n):
+    """#7 (two words) and #8 (three) against their plain twin: every word
+    of Q and R bit for bit."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.ops import df32, df_qr_kernel, tf32
+    nm = df32 if words == 2 else tf32
+    P = nm.from_f64(torch.randn((4, 32, n), generator=gen, device="cuda",
+                                dtype=torch.float64)
+                    * torch.exp(torch.linspace(4, -4, 32, device="cuda",
+                                               dtype=torch.float64))[:, None])
+    name = "df_qr_panel" if words == 2 else "tf_qr_panel"
+    before = _cuda.LAUNCHES[name]
+    got = df_qr_kernel.panel_cuda(P, words)
+    assert _cuda.LAUNCHES[name] == before + 1
+    want = df_qr_kernel.panel_plain(P, nm)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("words", [2, 3])
+def test_mw_hybrid_qr_on_cuda_matches_cpu(gen, words):
+    """The hybrid QR on the card (external projections in multiword
+    matmuls, panels through the kernel) equals the CPU path (the twin) bit
+    for bit: the Ozaki plane products are exact on both devices."""
+    from dqmc_tpu_torch.ops import df32, df_qr_kernel, tf32, tf_qr_kernel
+    nm = df32 if words == 2 else tf32
+    hybrid = (df_qr_kernel.df_qr_hybrid if words == 2
+              else tf_qr_kernel.tf_qr_hybrid)
+    A = nm.from_f64(torch.randn((2, 64, 64), generator=gen, device="cuda",
+                                dtype=torch.float64))
+    got = hybrid(A)
+    want = hybrid(nm.cmap(lambda c: c.cpu(), A))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)

@@ -61,8 +61,10 @@ n_stab = 4
 
 @pytest.mark.parametrize("section,key,value", [
     ("simulation", "isMeasureUnequalTime", "true"),
-    ("simulation", "dtype", "df32"),
-    ("simulation", "measure_precision", "tf32"),
+    # the multiword engine and tiers are ported; their tau-resolved
+    # measurement still needs engine/uneqtime.py
+    ("simulation", "dtype", "df32+uneq"),
+    ("simulation", "measure_precision", "tf32+uneq"),
     ("ParallelTempering", "enabled", "true"),
     ("walkers", "n_devices", "2"),
     ("simulation", "checkpoint_every", "1"),
@@ -84,6 +86,9 @@ def test_unported_configuration_raises(tmp_path, section, key, value):
         value = value.split("+")[0]
         params.set("hubbard", "model", "repulsive")
         params.set("simulation", "measure_spin", "true")
+    if value.endswith("+uneq"):
+        value = value.split("+")[0]
+        params.set("simulation", "isMeasureUnequalTime", "true")
     params.set(section, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_simulation(params, out_dir=str(tmp_path / "results"),
@@ -131,13 +136,15 @@ def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kernel", ["cgs2_qr", "fused_wrap", "fused_sites",
                                     "fused_sites_2f", "fused_sites_sub",
-                                    "delayed_sites_2f"])
+                                    "delayed_sites_2f", "df_qr_panel",
+                                    "tf_qr_panel"])
 def test_kernel_wrappers_raise_on_cpu_tensors(kernel):
     """A kernel wrapper launches its kernel or raises: it never runs the
     plain twin, and a refused call counts no launch."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.engine import fused
-    from dqmc_tpu_torch.ops import kernels, qr_kernel
+    from dqmc_tpu_torch.ops import df32, df_qr_kernel, kernels, qr_kernel, \
+        tf32
     W, n = 2, 32
     G = torch.zeros((W, n, n))
     G2 = torch.zeros((W, 2, n, n))
@@ -152,6 +159,10 @@ def test_kernel_wrappers_raise_on_cpu_tensors(kernel):
         "delayed_sites_2f": lambda: kernels.check_cuda_slice(
             G2, order[0], v, v2, v, "delayed", 32),
         "cgs2_qr": lambda: qr_kernel._cgs2_qr_cuda(G, True),
+        "df_qr_panel": lambda: df_qr_kernel.panel_cuda(
+            df32.zeros((W, 32, n)), 2),
+        "tf_qr_panel": lambda: df_qr_kernel.panel_cuda(
+            tf32.zeros((W, 32, n)), 3),
         "fused_wrap": lambda: fused.wrap_gemm_cuda(G, G, rv=v),
         "fused_sites": lambda: fused.site_loop_cuda(
             G, v.clone(), torch.zeros((1, n), dtype=torch.int32), v, v, v,
@@ -176,8 +187,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_kernel_sources_are_listed():
     from dqmc_tpu_torch import _cuda
     names = [p.name for p in _cuda.sources()]
-    assert names == ["cgs2_qr.cu", "fused_block.cu", "site_update.cu",
-                     "submatrix_update.cu"]
+    assert names == ["cgs2_qr.cu", "fused_block.cu", "mw_qr_panel.cu",
+                     "site_update.cu", "submatrix_update.cu"]
     assert _cuda.library_path().parent == _cuda.BUILD_DIR
     assert sorted(p.name for p in _cuda.CSRC.glob("*.cuh")) == [
         "rank_k_flush.cuh", "submatrix_decide.cuh"]
@@ -185,7 +196,12 @@ def test_kernel_sources_are_listed():
         "cgs2_qr", "fused_wrap", "fused_sites", "fused_sites_2f",
         "fused_sites_sub", "delayed_sites", "delayed_sites_2f",
         "delayed_flush", "rank1_sites", "submatrix_decide", "submatrix_prep",
-        "submatrix_flush"}
+        "submatrix_flush", "df_qr_panel", "tf_qr_panel"}
     # every C entry point has both float types' signatures declared
     assert {"dqmc_site_loop_2f", "dqmc_site_loop_sub",
             "dqmc_delayed_sites_2f"} <= set(_cuda._SIGNATURES)
+    # the multiword panels are float32 only and build without contraction
+    assert set(_cuda._FLOAT32_SIGNATURES) == {"dqmc_df_qr_panel",
+                                              "dqmc_tf_qr_panel"}
+    assert "--fmad=false" in _cuda.nvcc_flags(_cuda.CSRC / "mw_qr_panel.cu")
+    assert "--fmad=false" not in _cuda.nvcc_flags(_cuda.CSRC / "cgs2_qr.cu")

@@ -103,3 +103,47 @@ def jax_per_slice_streams(keys, nt, ns, dtype, forward):
         for arr, x in zip(out, jax_slice_streams(k_slice, ns, dtype)):
             arr[:, l] = x
     return tuple(out), keys
+
+
+def torch_mw(x):
+    """A JAX DF or TF tuple as the port's (same components, numpy-carried)."""
+    from dqmc_tpu_torch.ops.df32 import DF
+    from dqmc_tpu_torch.ops.tf32 import TF
+    parts = [torch.from_numpy(np.array(c)) for c in x]
+    return (DF if len(parts) == 2 else TF)(*parts)
+
+
+def torch_ldr_df(F):
+    """A JAX LDRdf (any leading axes) as the port's, exponents included."""
+    from dqmc_tpu_torch.ops.df_linalg import LDRdf
+    return LDRdf(torch_mw(F.L), torch_mw(F.d), torch_mw(F.R),
+                 torch.from_numpy(np.array(F.e)).to(torch.int32))
+
+
+def torch_df_aux(aux):
+    """The port's DFModelAux from the JAX package's."""
+    from dqmc_tpu_torch.engine.df_sweep import DFModelAux
+    return DFModelAux(expK=torch_mw(aux.expK), expv=torch_mw(aux.expv),
+                      act=torch_mw(aux.act))
+
+
+def torch_df_states(states, seed: int = 0):
+    """The port's DFWalkerState from walker-batched JAX df states (the
+    walker generators seeded from ``seed``)."""
+    from dqmc_tpu_torch.engine.df_sweep import DFWalkerState
+    from dqmc_tpu_torch.engine.state import make_generators
+    as_t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    W = np.asarray(states.G).shape[0]
+    return DFWalkerState(
+        fields=as_t(states.fields).to(torch.int64), G=as_t(states.G),
+        G_df=torch_mw(states.G_df), stack=torch_ldr_df(states.stack),
+        log_det_M=as_t(states.log_det_M), gens=make_generators(seed, W, "cpu"),
+        acc_sum=as_t(states.acc_sum), sign=as_t(states.sign),
+        err_max=as_t(states.err_max), err_sum=as_t(states.err_sum),
+        err_count=as_t(states.err_count))
+
+
+def mw_equal(a, b) -> bool:
+    """Bit equality of a JAX and a port multiword tuple, word by word."""
+    return len(a) == len(b) and all(
+        np.array_equal(np.asarray(x), to_np(y)) for x, y in zip(a, b))
