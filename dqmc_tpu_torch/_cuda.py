@@ -152,6 +152,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            handle.dqmc_cgs2_workspace.argtypes = [_I, _I]
+            handle.dqmc_cgs2_workspace.restype = _LL
             handle.dqmc_error_string.argtypes = [ctypes.c_int]
             handle.dqmc_error_string.restype = ctypes.c_char_p
             _lib = handle

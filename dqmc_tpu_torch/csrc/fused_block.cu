@@ -30,12 +30,29 @@
 // What bounds it on an H100: G does not fit in one CTA's shared memory
 // (256 KB in f32 at ns = 256 against 227 KB), so it lives in global memory
 // and L2.  The site loop is a chain of ns dependent steps per slice, each a
-// few __syncthreads apart, with one CTA per walker (W of 132 SMs busy); the
-// wraps are ns^3 FLOPs per matrix and are throughput-bound.
+// few __syncthreads apart, with one CTA per walker (W of 132 SMs busy).
+// The wraps are 2 ns^3 FLOPs per matrix on data that sits in L2: bound by
+// the FP32 FMA rate (67 TFLOP/s, 8 us for the headline's 16 x 256^3), and
+// in practice by how well the tiles feed the FMA units from shared memory
+// and how many SMs they fill.
 //
 // What the design does about it: the wraps leave the sequential kernel and
 // run as a tiled FFMA GEMM over (tiles x walkers) CTAs, so all SMs share
-// them.  The site loop keeps U and V (2 k ns elements, 64 KB at k = 32,
+// them.  The tile follows n: 64 x 64 with an 8 x 4 register tile per
+// thread (float32) from n = 65 (256 CTAs at the headline), 32 x 64 with
+// 4 x 4 below.  A and B arrive in 16-byte loads; A is transposed (and
+// scaled by m) on its way into a padded shared tile, so the FMA loop reads
+// both operands as 16-byte shared loads; the shared tiles are
+// double-buffered, with the next tile's global loads in flight during the
+// current tile's FMAs (staged through registers rather than cp.async,
+// because of that transpose and scale).  When B is shared by the batch
+// (every wrap's second product), the walkers' rows form one tall GEMM, so
+// a ragged n wastes one partial row tile in all instead of one per walker.
+// It stays about 1.3x behind cuBLAS's FP32 GEMM at the headline: 22
+// TFLOP/s, a third of the FP32 FMA peak, against cuBLAS's 31; none of the
+// twelve tile shapes scripts/wrap_gemm_tiles.py times comes within 1.25x.
+//
+// The site loop keeps U and V (2 k ns elements, 64 KB at k = 32,
 // ns = 256, f32) in dynamic shared memory and reads row i of G coalesced
 // and column i strided from L2 -- no G^T chain (G^T existed on the TPU
 // only because transposes were costly there).  The flush reads V's column
@@ -59,82 +76,211 @@
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int TK = 16;
-constexpr int GEMM_THREADS = 256;
 constexpr int KMAX = 32;
 constexpr int SITE_THREADS_MAX = 512;  // one thread per column, ns <= 512
 
+// 16 bytes of T: one float4 or double2 load or store
 template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS)
+struct alignas(16) Vec {
+  T v[16 / sizeof(T)];
+};
+
+// C = diag(r) A diag(m) B diag(c) for a batch, one BM x BN output tile per
+// CTA and a TM x TN register tile per thread, BK deep per shared tile.
+// stacked (B shared, A per walker): the W x n rows of A and C form one
+// tall matrix of `rows` rows, tiled as one GEMM; otherwise blockIdx.z is
+// the walker and rows = n.  The tiles of A (transposed and scaled by m on
+// the way) and B are staged in two shared buffers: the loads of tile k+1
+// go out to registers before the FMAs of tile k and land in the other
+// buffer after them.  VEC: 16-byte loads and stores (n a multiple of
+// 16 / sizeof(T), 16-byte aligned pointers); ragged edges read zeros.
+template <typename T, int BM, int BN, int TM, int TN, int BK, bool VEC>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
 wrap_gemm_kernel(T* __restrict__ C, const T* __restrict__ A, long long sA,
                  const T* __restrict__ B, long long sB,
                  const T* __restrict__ rv, const T* __restrict__ mv,
-                 const T* __restrict__ cv, long long sV, int n) {
-  __shared__ T As[TK][TILE];
-  __shared__ T Bs[TK][TILE];
-  const int w = blockIdx.z;
-  A += w * sA;
-  B += w * sB;
-  C += (long long)w * n * n;
-  if (rv) rv += w * sV;
-  if (mv) mv += w * sV;
-  if (cv) cv += w * sV;
+                 const T* __restrict__ cv, long long sV, int n, int rows,
+                 bool stacked) {
+  constexpr int THREADS = (BM / TM) * (BN / TN);
+  constexpr int VW = 16 / sizeof(T);
+  constexpr int A_VECS = BM * BK / VW / THREADS;
+  constexpr int B_VECS = BK * BN / VW / THREADS;
+  static_assert(A_VECS * VW * THREADS == BM * BK, "A tile split");
+  static_assert(B_VECS * VW * THREADS == BK * BN, "B tile split");
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "register tile width");
+  // rows padded by 4 elements: 16-byte aligned, and the transposed stores
+  // of A land on at most two threads per bank
+  __shared__ __align__(16) T As[2][BK][BM + 4];
+  __shared__ __align__(16) T Bs[2][BK][BN + 4];
 
   const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
-  T acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  // the walker and local row of global row gr; false past the last row
+  auto locate = [&](int gr, int& w, int& lr) {
+    if (stacked) {
+      w = gr / n;
+      lr = gr - w * n;
+      return gr < rows;
+    }
+    w = blockIdx.z;
+    lr = gr;
+    return gr < n;
+  };
 
-  for (int k0 = 0; k0 < n; k0 += TK) {
-    for (int e = tid; e < TILE * TK; e += GEMM_THREADS) {
-      const int rr = e / TK, kk = e % TK;
-      const int gr = row0 + rr, gk = k0 + kk;
-      T v = T(0);
-      if (gr < n && gk < n) {
-        v = A[(long long)gr * n + gk];
-        if (mv) v *= mv[gk];
+  // the rows and depths this thread loads, fixed for the whole k loop
+  const T* a_src[A_VECS];
+  const T* m_src[A_VECS];
+  int a_r[A_VECS], a_k[A_VECS];
+  bool a_ok[A_VECS];
+#pragma unroll
+  for (int i = 0; i < A_VECS; ++i) {
+    const int e = tid + i * THREADS;
+    a_r[i] = e / (BK / VW);
+    a_k[i] = (e % (BK / VW)) * VW;
+    int w, lr;
+    a_ok[i] = locate(row0 + a_r[i], w, lr);
+    a_src[i] = A + w * sA + (long long)lr * n;
+    m_src[i] = mv ? mv + w * sV : nullptr;
+  }
+  int b_k[B_VECS], b_c[B_VECS];
+#pragma unroll
+  for (int i = 0; i < B_VECS; ++i) {
+    const int e = tid + i * THREADS;
+    b_k[i] = e / (BN / VW);
+    b_c[i] = (e % (BN / VW)) * VW;
+  }
+  const T* Bw = B + (stacked ? 0 : blockIdx.z * sB);
+
+  T ra[A_VECS][VW], rb[B_VECS][VW];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < A_VECS; ++i) {
+      const int k = k0 + a_k[i];
+      if (VEC) {
+        Vec<T> v{};
+        if (a_ok[i] && k < n) v = *reinterpret_cast<const Vec<T>*>(a_src[i] + k);
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          ra[i][j] = m_src[i] && a_ok[i] && k < n ? v.v[j] * m_src[i][k + j]
+                                                  : v.v[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < VW; ++j) {
+          const int kk = k + j;
+          T v = T(0);
+          if (a_ok[i] && kk < n) {
+            v = a_src[i][kk];
+            if (m_src[i]) v *= m_src[i][kk];
+          }
+          ra[i][j] = v;
+        }
       }
-      As[kk][rr] = v;
     }
-    for (int e = tid; e < TK * TILE; e += GEMM_THREADS) {
-      const int kk = e / TILE, cc = e % TILE;
-      const int gk = k0 + kk, gc = col0 + cc;
-      Bs[kk][cc] = (gk < n && gc < n) ? B[(long long)gk * n + gc] : T(0);
+#pragma unroll
+    for (int i = 0; i < B_VECS; ++i) {
+      const int k = k0 + b_k[i], c = col0 + b_c[i];
+      if (VEC) {
+        Vec<T> v{};
+        if (k < n && c < n)
+          v = *reinterpret_cast<const Vec<T>*>(Bw + (long long)k * n + c);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) rb[i][j] = v.v[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          rb[i][j] = k < n && c + j < n ? Bw[(long long)k * n + c + j] : T(0);
+      }
     }
-    __syncthreads();
+  };
+  auto store = [&](int buf) {
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      T a[4], b[4];
+    for (int i = 0; i < A_VECS; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a[q] = As[kk][tr * 4 + q];
-        b[q] = Bs[kk][tc * 4 + q];
+      for (int j = 0; j < VW; ++j) As[buf][a_k[i] + j][a_r[i]] = ra[i][j];
+#pragma unroll
+    for (int i = 0; i < B_VECS; ++i) {
+      Vec<T> v;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) v.v[j] = rb[i][j];
+      *reinterpret_cast<Vec<T>*>(&Bs[buf][b_k[i]][b_c[i]]) = v;
+    }
+  };
+
+  // a thread's rows (columns) come in groups of four, the groups BM / (TM
+  // / 4) apart, so the four-wide shared reads of a warp's threads fall on
+  // distinct banks
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  auto row_of = [](int tr_, int x) {
+    return (x / 4) * (BM / (TM / 4)) + tr_ * 4 + x % 4;
+  };
+  auto col_of = [](int tc_, int y) {
+    return (y / 4) * (BN / (TN / 4)) + tc_ * 4 + y % 4;
+  };
+  T acc[TM][TN];
+#pragma unroll
+  for (int x = 0; x < TM; ++x)
+#pragma unroll
+    for (int y = 0; y < TN; ++y) acc[x][y] = T(0);
+
+  const int n_tiles = (n + BK - 1) / BK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    const bool more = kt + 1 < n_tiles;
+    if (more) load((kt + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      T a[TM], b[TN];
+#pragma unroll
+      for (int x = 0; x < TM; x += VW) {
+        const Vec<T> v =
+            *reinterpret_cast<const Vec<T>*>(&As[buf][kk][row_of(tr, x)]);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) a[x + j] = v.v[j];
       }
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
+      for (int y = 0; y < TN; y += VW) {
+        const Vec<T> v =
+            *reinterpret_cast<const Vec<T>*>(&Bs[buf][kk][col_of(tc, y)]);
 #pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] += a[x] * b[y];
+        for (int j = 0; j < VW; ++j) b[y + j] = v.v[j];
+      }
+#pragma unroll
+      for (int x = 0; x < TM; ++x)
+#pragma unroll
+        for (int y = 0; y < TN; ++y) acc[x][y] += a[x] * b[y];
     }
+    if (more) store(buf ^ 1);
     __syncthreads();
   }
 
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int gr = row0 + tr * 4 + x;
-    if (gr >= n) continue;
+  for (int x = 0; x < TM; ++x) {
+    int w, lr;
+    if (!locate(row0 + row_of(tr, x), w, lr)) continue;
+    T* crow = C + (long long)w * n * n + (long long)lr * n;
+    const T rs = rv ? rv[w * sV + lr] : T(1);
+    const T* cs = cv ? cv + w * sV : nullptr;
 #pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int gc = col0 + tc * 4 + y;
-      if (gc >= n) continue;
-      T v = acc[x][y];
-      if (rv) v = rv[gr] * v;
-      if (cv) v = v * cv[gc];
-      C[(long long)gr * n + gc] = v;
+    for (int y = 0; y < TN; y += VW) {
+      const int c = col0 + col_of(tc, y);
+      Vec<T> v;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        T e = acc[x][y + j];
+        if (rv) e = rs * e;
+        if (cs && c + j < n) e = e * cs[c + j];
+        v.v[j] = e;
+      }
+      if (VEC) {
+        if (c < n) *reinterpret_cast<Vec<T>*>(crow + c) = v;
+      } else {
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          if (c + j < n) crow[c + j] = v.v[j];
+      }
     }
   }
 }
@@ -333,16 +479,50 @@ site_loop_sub_kernel(T* __restrict__ G, T* __restrict__ mask,
   }
 }
 
+template <typename T, int BM, int BN, int TM, int TN, int BK>
+int launch_gemm_tiles(T* C, const T* A, long long sA, const T* B,
+                      long long sB, const T* rv, const T* mv, const T* cv,
+                      long long sV, int n, int batch, cudaStream_t stream) {
+  constexpr int VW = 16 / sizeof(T);
+  // B shared by the batch: the walkers' rows of A and C are one tall GEMM
+  const bool stacked = sB == 0 && sA == (long long)n * n;
+  const int rows = stacked ? batch * n : n;
+  const dim3 grid((n + BN - 1) / BN, (rows + BM - 1) / BM,
+                  stacked ? 1 : batch);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const bool vec = n % VW == 0 && sA % VW == 0 && sB % VW == 0 &&
+                   aligned(A) && aligned(B) && aligned(C);
+  constexpr int threads = (BM / TM) * (BN / TN);
+  if (vec)
+    wrap_gemm_kernel<T, BM, BN, TM, TN, BK, true><<<grid, threads, 0, stream>>>(
+        C, A, sA, B, sB, rv, mv, cv, sV, n, rows, stacked);
+  else
+    wrap_gemm_kernel<T, BM, BN, TM, TN, BK, false><<<grid, threads, 0, stream>>>(
+        C, A, sA, B, sB, rv, mv, cv, sV, n, rows, stacked);
+  return (int)cudaGetLastError();
+}
+
+// The tile from n (chosen among eleven shapes by scripts/wrap_gemm_tiles.py
+// on an H100): 64 x 64 tiles from n = 65 (the headline's (16, 256) gives
+// 256 CTAs, two per SM), with 128 threads of 8 x 4 outputs in float32 (32
+// FMAs per three 16-byte shared loads) and 256 threads of 4 x 4 in float64
+// (registers); 32 x 64 tiles of 128 threads (4 x 4 each) below, where a
+// 64-row tile would be mostly padding (examples/basic's n = 36; the
+// repulsive preset's 64 chains of n = 64 give 128 CTAs).
 template <typename T>
 int launch_gemm(T* C, const T* A, long long sA, const T* B, long long sB,
                 const T* rv, const T* mv, const T* cv, long long sV, int n,
                 int batch, void* stream) {
   if (n <= 0 || batch <= 0 || batch > 65535) return (int)cudaErrorInvalidValue;
-  const int tiles = (n + TILE - 1) / TILE;
-  dim3 grid(tiles, tiles, batch);
-  wrap_gemm_kernel<T><<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      C, A, sA, B, sB, rv, mv, cv, sV, n);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 64)
+    return launch_gemm_tiles<T, 64, 64, sizeof(T) == 4 ? 8 : 4, 4, 16>(
+        C, A, sA, B, sB, rv, mv, cv, sV, n, batch, st);
+  return launch_gemm_tiles<T, 32, 64, 4, 4, 16>(C, A, sA, B, sB, rv, mv, cv,
+                                                sV, n, batch, st);
 }
 
 template <typename T, int NFL>

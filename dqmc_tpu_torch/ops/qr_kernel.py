@@ -7,7 +7,9 @@ in 32-column panels: each panel gets two block projection passes against the
 finished columns, then each of its columns two passes against the earlier
 columns of the panel; R is accumulated from the coefficients of both passes
 and its diagonal is the column norm (>= 0).  ``cgs2_qr_inv`` also returns
-W = R^{-1}.
+W = R^{-1}, built blockwise per panel as the TPU kernel builds it (the
+diagonal block's inverse, then one cross-panel product), associated as the
+block column of R W = I.
 
 On a CUDA tensor :func:`_cgs2_qr_impl` launches the hand-written kernel in
 ``csrc/cgs2_qr.cu``; on a CPU tensor it runs :func:`cgs2_qr_plain`, the
@@ -26,20 +28,40 @@ _BLOCK = 32
 _MAX_N = {torch.float32: 1024, torch.float64: 512}
 
 
+def diag_block_inverse(Rpp: torch.Tensor) -> torch.Tensor:
+    """S = Rpp^{-1} of a batch of upper-triangular (B, 32, 32) diagonal
+    blocks by back substitution, Rpp S = I, row by row from the last (a
+    zero pivot divides by 1, as the kernel does)."""
+    B, m, _ = Rpp.shape
+    d = torch.diagonal(Rpp, dim1=-2, dim2=-1)
+    safe = torch.where(d == 0, torch.ones_like(d), d)
+    eye = torch.eye(m, dtype=Rpp.dtype, device=Rpp.device)
+    S = torch.zeros_like(Rpp)
+    for i in range(m - 1, -1, -1):
+        acc = eye[i] - torch.einsum("bl,blj->bj", Rpp[:, i, i + 1:],
+                                    S[:, i + 1:, :])
+        S[:, i, :] = acc / safe[:, i, None]
+    return S
+
+
 def cgs2_qr_plain(A: torch.Tensor, with_inv: bool = False):
     """(Q, R[, R^{-1}]) of a flat batch A (B, n, n), n a multiple of 32, in
-    plain torch ops: the kernel's algorithm step for step."""
+    plain torch ops: the kernel's algorithm step for step, R^{-1} blockwise
+    (each panel's diagonal-block inverse S, then
+    W[:p0, P] = -W[:p0, :p0] (R[:p0, P] S))."""
     B, n, _ = A.shape
     QT = A.transpose(-1, -2).clone()           # rows = columns of A
     R = torch.zeros_like(A)
+    W = torch.zeros_like(A) if with_inv else None
     for p0 in range(0, n, _BLOCK):
-        P = QT[:, p0:p0 + _BLOCK, :].clone()
+        pan = slice(p0, p0 + _BLOCK)
+        P = QT[:, pan, :].clone()
         if p0:
             Qd = QT[:, :p0, :]
             for _ in range(2):                 # classical block passes
                 C = P @ Qd.transpose(-1, -2)   # (B, 32, p0)
                 P = P - C @ Qd
-                R[:, :p0, p0:p0 + _BLOCK] += C.transpose(-1, -2)
+                R[:, :p0, pan] += C.transpose(-1, -2)
         for t in range(_BLOCK):
             y = P[:, t, :]
             prev = P[:, :t, :]
@@ -53,21 +75,20 @@ def cgs2_qr_plain(A: torch.Tensor, with_inv: bool = False):
             P[:, t, :] = y / safe[:, None]
             R[:, p0:p0 + t, p0 + t] = coef
             R[:, p0 + t, p0 + t] = nrm
-        QT[:, p0:p0 + _BLOCK, :] = P
+        QT[:, pan, :] = P
+        if with_inv:
+            S = diag_block_inverse(R[:, pan, pan])
+            W[:, pan, pan] = S
+            if p0:
+                X = R[:, :p0, pan] @ S
+                W[:, :p0, pan] = -(W[:, :p0, :p0] @ X)
     Q = QT.transpose(-1, -2)
-    if not with_inv:
-        return Q, R
-    diag = torch.diagonal(R, dim1=-2, dim2=-1)
-    R_safe = R + torch.diag_embed(torch.where(diag == 0,
-                                              torch.ones_like(diag),
-                                              torch.zeros_like(diag)))
-    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n)
-    W = torch.linalg.solve_triangular(R_safe, eye, upper=True)
-    return Q, R, W
+    return (Q, R, W) if with_inv else (Q, R)
 
 
 def _cgs2_qr_cuda(A: torch.Tensor, with_inv: bool):
-    """Launch K1 on a flat CUDA batch A (B, n, n)."""
+    """Launch K1 on a flat CUDA batch A (B, n, n): one C call, which issues
+    the kernel's per-panel launches on the current stream."""
     B, n, _ = A.shape
     max_n = _MAX_N.get(A.dtype, 0)
     if n % _BLOCK or n > max_n:
@@ -79,10 +100,11 @@ def _cgs2_qr_cuda(A: torch.Tensor, with_inv: bool):
     qt = torch.empty_like(at)
     r = torch.empty_like(at)
     rinv = torch.empty_like(at) if with_inv else None
-    cbuf = torch.empty((B, _BLOCK, n), dtype=A.dtype, device=A.device)
+    work = torch.empty((_cuda.lib().dqmc_cgs2_workspace(B, n),),
+                       dtype=A.dtype, device=A.device)
     _cuda.launch("cgs2_qr", "dqmc_cgs2_qr" + sfx, A.device,
                  _cuda.ptr(at), _cuda.ptr(qt), _cuda.ptr(r), _cuda.ptr(rinv),
-                 _cuda.ptr(cbuf), B, n, _cuda.stream(A.device))
+                 _cuda.ptr(work), B, n, _cuda.stream(A.device))
     Q = qt.transpose(-1, -2)
     return (Q, r, rinv) if with_inv else (Q, r)
 

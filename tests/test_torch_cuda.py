@@ -26,8 +26,11 @@ def gen():
     return g
 
 
-@pytest.mark.parametrize("n", [64, 36])
+@pytest.mark.parametrize("n", [64, 36, 256])
 def test_cgs2_kernel_matches_twin_f64(gen, n):
+    """Q, R and the blockwise R^{-1} against the twin (n = 256: eight
+    panels, a split block-pass contraction), one counted launch per call,
+    and the same bits on a second call."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.ops import qr_kernel as qk
     A = torch.randn((3, n, n), generator=gen, device="cuda",
@@ -38,6 +41,34 @@ def test_cgs2_kernel_matches_twin_f64(gen, n):
     want = qk.padded_qr(A, True, qk.cgs2_qr_plain)
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) < 1e-12
+    for g, again in zip(got, qk.cgs2_qr_inv(A)):
+        assert torch.equal(g, again)
+
+
+def test_wrap_gemm_kernel_matches_plain(gen):
+    """The wrap GEMM against its plain version in both types, at a ragged
+    n (36, 32 x 32 tiles), at n = 64 and at n = 256 (64 x 64 tiles), and at
+    odd n (25, 81: scalar loads and stores, masked edges), with A shared, B
+    shared (one tall GEMM) and neither, every scale vector, and the same
+    bits on a second call."""
+    from dqmc_tpu_torch.engine import fused
+    for dtype in (torch.float64, torch.float32):
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for W, n in ((4, 36), (8, 64), (3, 256), (2, 25), (2, 81)):
+            rand = lambda *s: torch.rand(s, generator=gen, device="cuda",
+                                         dtype=dtype) + 0.5
+            Aw, Bw, K = rand(W, n, n), rand(W, n, n), rand(n, n)
+            rv, mv, cv = rand(W, n), rand(W, n), rand(W, n)
+            for A, B in ((K, Bw), (Aw, K), (Aw, Bw)):
+                got = fused.wrap_gemm_cuda(A, B, rv=rv, mv=mv, cv=cv)
+                want = fused.wrap_gemm_plain(A, B, rv=rv, mv=mv, cv=cv)
+                assert float((got - want).abs().max()
+                             / want.abs().max()) < tol
+                assert torch.equal(
+                    got, fused.wrap_gemm_cuda(A, B, rv=rv, mv=mv, cv=cv))
+            got = fused.wrap_gemm_cuda(Aw, K)
+            assert float((got - Aw @ K).abs().max()
+                         / (Aw @ K).abs().max()) < tol
 
 
 # G: tests/test_fused.py's bounds for the JAX kernel against its own

@@ -24,10 +24,11 @@ def _graded(rng, B, n, spread=12.0, dtype=np.float32):
     return (M / s[:, None, :]).astype(dtype)
 
 
-@pytest.mark.parametrize("n", [64, 36])
+@pytest.mark.parametrize("n", [64, 36, 96])
 def test_cgs2_twin_matches_jax_kernel_f64(rng, n):
-    """(2, 64, 64) directly and n = 36 through the exact identity padding
-    to 64: Q, R and R^{-1} agree with the Pallas kernel to 1e-12."""
+    """(2, 64, 64) and (2, 96, 96) directly and n = 36 through the exact
+    identity padding to 64: Q, R and R^{-1} (both built blockwise, three
+    panels at n = 96) agree with the Pallas kernel to 1e-12."""
     A = rng.standard_normal((2, n, n))
     if n % 32 == 0:
         want = _cgs2_qr_impl(jnp.asarray(A), interpret=True, with_inv=True)
@@ -130,3 +131,31 @@ def test_cgs2_kernel_size_limit_by_dtype(dtype, n, ok):
     with pytest.raises(ValueError,
                        match="takes CUDA tensors" if ok else "<= "):
         tqr._cgs2_qr_cuda(A, False)
+
+
+def test_diag_block_inverse_matches_triangular_solve(rng):
+    """The panel's 32 x 32 diagonal-block inverse S (back substitution row
+    by row, as the kernel's panel step) equals a triangular inverse; a zero
+    pivot divides by 1, as R_safe did."""
+    R = np.triu(rng.standard_normal((3, 32, 32)))
+    R[:, range(32), range(32)] = np.abs(R[:, range(32), range(32)]) + 0.5
+    R[2, 7, 7] = 0.0
+    S = to_np(tqr.diag_block_inverse(torch.as_tensor(R)))
+    R_safe = R.copy()
+    R_safe[2, 7, 7] = 1.0
+    np.testing.assert_allclose(S, np.linalg.inv(R_safe), atol=1e-12)
+    assert np.abs(np.tril(S, -1)).max() == 0.0
+
+
+@pytest.mark.parametrize("n", [64, 96, 160])
+def test_cgs2_twin_rinv_f32_right_residual(rng, n):
+    """The blockwise R^{-1} in float32 is a right inverse to working
+    accuracy, as the block column of R W = I it is built from: componentwise
+    |R W - I| <= n u |R| |W| (u = 2^-24), upper triangular."""
+    A = _graded(rng, 4, n)
+    _, R, W = tqr.cgs2_qr_inv(torch.as_tensor(A))
+    R, W = to_np(R).astype(np.float64), to_np(W).astype(np.float64)
+    res = np.abs(R @ W - np.eye(n))
+    scale = np.abs(R) @ np.abs(W)
+    assert (res <= n * 2.0 ** -24 * scale).all()
+    assert np.abs(np.tril(W, -1)).max() == 0.0
