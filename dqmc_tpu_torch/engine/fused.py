@@ -164,7 +164,7 @@ def wrap_gemm_cuda(A, B, rv=None, mv=None, cv=None):
 def _check_site_loop(G, mask, order, gb, delta, us, sgn, k, update):
     """The site-loop kernels' inputs: contiguous CUDA tensors of G's dtype,
     G (W, n, n) with delta (W, L), or (W, 2, n, n) with (W, 2, L) and
-    sgn (W,), at a rank and size whose buffers fit one CTA."""
+    sgn (W,), at a rank and size whose buffers fit a CTA's shared memory."""
     W, n = G.shape[0], G.shape[-1]
     flv = tuple(G.shape[1:-2])
     dev, dt = G.device, G.dtype
@@ -372,24 +372,37 @@ def block_rank(cfg: EngineConfig) -> int:
 
 def site_loop_smem(ns: int, itemsize: int, nfl: int = 1,
                    update: str = "delayed", k: int = _K) -> int:
-    """Shared memory one CTA of the site-loop kernel needs, in bytes: the
-    U/V buffers of each flavor (2 nfl k ns elements; Ut/M for the submatrix
-    scheme) and, for the submatrix scheme, its k x k decision data."""
+    """Shared memory one CTA of the site-loop kernel needs, in bytes
+    (csrc/fused_block.cu site_smem_bytes).  Delayed scheme (one cluster
+    of C CTAs per walker, each owning R <= 32 indices, Rp = R rounded up
+    to 4): one 8-byte mbarrier per slot (kp, k rounded up to 8); per
+    flavor, the CTA's own U and V and the group's panels of G (4 k Rp
+    elements), the pending U and V entries at the group's sites (2 k kp)
+    and the group's diagonal (k); the slice's gb, us and delta ((2 + nfl)
+    ns); as ints, the visit order and the accept flags (2 ns) and the own
+    slots (Rp).  Submatrix scheme (one CTA per walker): its flush operands
+    (2 k ns elements) and its k x k decision data."""
     k = pick_rank(ns, k)
-    dyn = 2 * nfl * k * ns * itemsize
-    return dyn + (_decide_smem(itemsize) if update == "submatrix" else 0)
+    if update == "submatrix":
+        return 2 * k * ns * itemsize + _decide_smem(itemsize)
+    C = 1                      # CTAs per walker: at most 32 sites each
+    while C < 16 and -(-ns // C) > 32:
+        C *= 2
+    Rp = (-(-ns // C) + 3) // 4 * 4
+    kp = (k + 7) // 8 * 8
+    return (8 * kp
+            + itemsize * (nfl * (4 * k * Rp + 2 * k * kp + k) + (2 + nfl) * ns)
+            + 4 * (2 * ns + Rp))
 
 
 def supports_fused(model, cfg: EngineConfig | None = None) -> bool:
     """Dense models with ns <= 512: single-flavor det^2 (either in-slice
     scheme) or two-flavor det^1 (delayed only), as in the JAX package.
 
-    On CUDA the site loop keeps its rank-k buffers in one CTA's shared
-    memory (227 KB), both flavors of a walker in the same CTA, and the
-    block rank stops at 32.  At k = 32 (ns a multiple of 32) that leaves
-    out float64 at ns >= 480 (448 for the submatrix scheme) with one
-    flavor, and float32 at ns >= 480 and float64 at ns >= 256 with two.
-    ``engine = auto`` takes the per-slice engine there."""
+    On CUDA the block rank stops at 32, and the submatrix loop keeps its
+    flush operands in one CTA's shared memory (227 KB), which leaves out
+    float64 at ns >= 448 (k = 32).  The delayed loop spreads a walker over
+    a cluster and takes every ns <= 512 in both float types."""
     ns = model.n_sites
     update = cfg.fused_update if cfg is not None else "delayed"
     kinds = (model.n_flavor, model.det_power)

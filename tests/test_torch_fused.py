@@ -230,14 +230,16 @@ def test_supports_fused_two_flavors_and_submatrix():
 
 @pytest.mark.parametrize("ns,itemsize,nfl,update,fits", [
     (256, 4, 1, "delayed", True), (512, 4, 1, "delayed", True),
-    (448, 8, 1, "delayed", True), (480, 8, 1, "delayed", False),
+    (448, 8, 1, "delayed", True), (480, 8, 1, "delayed", True),
     (256, 4, 2, "delayed", True), (448, 4, 2, "delayed", True),
-    (512, 4, 2, "delayed", False), (224, 8, 2, "delayed", True),
-    (256, 8, 2, "delayed", False), (512, 4, 1, "submatrix", True),
+    (512, 4, 2, "delayed", True), (224, 8, 2, "delayed", True),
+    (256, 8, 2, "delayed", True), (512, 4, 1, "submatrix", True),
     (416, 8, 1, "submatrix", True), (448, 8, 1, "submatrix", False),
 ])
 def test_site_loop_shared_memory_gate(ns, itemsize, nfl, update, fits):
     """What one CTA's 227 KB of shared memory holds at k = 32: the gate
-    supports_fused applies on CUDA."""
+    supports_fused applies on CUDA.  The delayed loop spreads a walker over
+    a cluster and takes every ns <= 512; the submatrix loop keeps one CTA
+    per walker."""
     need = tfused.site_loop_smem(ns, itemsize, nfl, update)
     assert (need <= tfused._SMEM_BYTES) == fits
