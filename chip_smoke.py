@@ -40,8 +40,10 @@ non-zero):
    under torch.profiler (device time by kernel, idle share);
 6. the per-slice engine's site-update kernels (#3 delayed in both order
    modes, #5 submatrix, #6 rank-1) against their twins, one slice each, at
-   (W=4, ns=36, k=4) and the stretch shape (W=4, ns=1024, k=32), and each
-   kernel timed alone at the stretch shape;
+   (W=4, ns=36, k=4) and the stretch shape (W=4, ns=1024, k=32), and #3
+   per walker at delay_rank 32 (groups of 32 + 4 at ns = 36); each kernel
+   timed alone at the stretch shape (#3 a whole slice and the rank-k flush
+   of #5 in device time, beside torch.baddbmm in device time);
 7. the stretch configuration (32x32, beta=16, nt=320, n_stab=5, U=4, W=4,
    float32) through run_simulation, with the default site update (#3) and
    with site_update = submatrix (#5), one pair each;
@@ -52,7 +54,9 @@ non-zero):
    and three pairs of the repulsive preset on each engine;
 10. the 2-flavor and submatrix kernels against their twins: #4 (the
     per-slice 2-flavor delayed update) one slice at (W=4, ns=36, k=4), the
-    repulsive preset's (32, 64, 32) and (4, 1024, 32); #2b (the fused block
+    repulsive preset's (32, 64, 32) and (4, 1024, 32), and per walker at
+    (4, 36) with groups of 32 + 4, its whole slice timed at (4, 1024, 32)
+    in device time; #2b (the fused block
     with two flavors) forward and backward at the preset's (32, 64, 5
     slices) and (16, 256, 5) in both float types; the #2b site loop alone
     in float64 up to ns = 512; #2c (the fused block's submatrix scheme) at
@@ -108,8 +112,10 @@ REPO = Path(__file__).resolve().parent
 # preset (2 W = 64 matrices of ns = 64)
 QR_SHAPES = ((16, 256), (4, 36), (64, 64))
 BLOCK_SHAPES = ((4, 6, 4.0, 40, 10), (16, 16, 8.0, 160, 5))  # W L beta nt n
-# the per-slice engine's site-update shapes: (W, L, k)
-SITE_SHAPES = ((4, 6, 4), (4, 32, 32))
+# the per-slice engine's site-update shapes: (W, L, k); the df32
+# headline's float32 view (16, 256, 32) runs the delayed slice on its
+# four-CTA clusters of 256 threads; the last is the stretch shape
+SITE_SHAPES = ((4, 6, 4), (16, 16, 32), (4, 32, 32))
 # #4's shapes: those, and the repulsive preset's (W=32, 8x8, two blocks of
 # 32 visits, one column per thread)
 SITE_SHAPES_2F = ((4, 6, 4), (32, 8, 32), (4, 32, 32))
@@ -741,28 +747,67 @@ def slice_inputs(torch, gen, W, L, dtype):
             model.g * scale, model.alpha.expand(W))
 
 
-SITE_CASES = (  # (label, wrapper, shared order, rank keyword)
-    ("#3 shared", "metropolis_slice_update_batched", True, "k_delay"),
-    ("#3 per-walker", "metropolis_slice_update_batched", False, "k_delay"),
-    ("#5 shared", "metropolis_slice_update_submatrix", True, "k_sub"),
-    ("#6 per-walker", "metropolis_slice_update", False, None),
+SITE_CASES = (  # (label, wrapper, shared order, rank keyword, fixed rank)
+    ("#3 shared", "metropolis_slice_update_batched", True, "k_delay", None),
+    ("#3 per-walker", "metropolis_slice_update_batched", False, "k_delay",
+     None),
+    # the engine's per-walker scheme at delay_rank = 32: at ns = 36 a group
+    # of 32 and a short one of 4 (examples/basic, phase 8)
+    ("#3 per-walker k=32", "metropolis_slice_update_batched", False,
+     "k_delay", 32),
+    ("#5 shared", "metropolis_slice_update_submatrix", True, "k_sub", None),
+    ("#6 per-walker", "metropolis_slice_update", False, None, None),
 )
+
+
+def check_site_budget(tk):
+    """The host's copy of the site loop's cluster and shared-memory budget
+    (ops/kernels.py slice_cluster, delayed_slice_smem) against the
+    library's (dqmc_site_cluster, dqmc_site_smem_bytes) at every shape the
+    two engines give it: the fused loop (R <= 32, ns <= 512) and the
+    delayed slice (R <= 64, ns <= 1024), k <= 32, one or two flavors,
+    float32 or float64."""
+    from dqmc_tpu_torch import _cuda
+    lib = _cuda.lib()
+    shapes, bad = 0, []
+    for rmax, top in ((32, 512), (64, tk.MAX_SITES)):
+        for ns in range(1, top + 1):
+            if lib.dqmc_site_cluster(ns, rmax) != tk.slice_cluster(ns,
+                                                                   rmax)[0]:
+                bad.append((rmax, ns))
+            for k in range(1, tk.KMAX + 1):
+                for nfl in (1, 2):
+                    for itemsize in (4, 8):
+                        shapes += 1
+                        if lib.dqmc_site_smem_bytes(
+                                ns, k, nfl, itemsize, rmax) != \
+                                tk.delayed_slice_smem(ns, itemsize, nfl, k,
+                                                      rmax):
+                            bad.append((rmax, ns, k, nfl, itemsize))
+    say(f"phase 6: site-loop budget, host copy against the library at "
+        f"{shapes} shapes: {len(bad)} disagree {bad[:4]}")
+    if bad:
+        fail("the host's copy of the site-loop budget disagrees with the "
+             "library's")
 
 
 def phase_sites(torch, gen, report):
     """#3, #5 and #6 against their twins, one slice each."""
     from dqmc_tpu_torch.ops import kernels as tk
+    check_site_budget(tk)
     slice_err = {}
     for W, L, k in SITE_SHAPES:
         ns = L * L
         for dtype in (torch.float64, torch.float32):
             G, fields, orders, props, us, g, alpha = slice_inputs(
                 torch, gen, W, L, dtype)
-            for label, name, shared, rank_kw in SITE_CASES:
+            for label, name, shared, rank_kw, fixed in SITE_CASES:
+                if fixed is not None and fixed == k:
+                    continue  # the case above at this shape
                 fn = getattr(tk, name)
                 kw = {}
                 if rank_kw:
-                    kw = {rank_kw: k, "exact_rank": not shared}
+                    kw = {rank_kw: fixed or k, "exact_rank": not shared}
                 args = (g, alpha, orders[0] if shared else orders, props,
                         us, G, fields)
                 Gk, fk, ak = fn(*args, **kw)
@@ -773,7 +818,7 @@ def phase_sites(torch, gen, report):
                 gap = float((Gk - Gp).abs().max())
                 rel = gap / float(Gp.abs().max())
                 tag = (f"phase 6: {label} {str(dtype)[6:]} W={W} ns={ns} "
-                       f"k={k if rank_kw else 1}")
+                       f"k={(fixed or k) if rank_kw else 1}")
                 accepted = int((ap * ns).round().sum())
                 if dtype == torch.float64:
                     # one slice, no propagation: the same decisions, G to
@@ -802,32 +847,42 @@ def phase_sites(torch, gen, report):
     time_site_kernels(torch, gen, tk, report, slice_err)
 
 
+def slice_bound(W, n, k, nfl, itemsize=4):
+    """(operations, bytes) of one delayed slice (#3, #4): every group's
+    visits (2 n t FLOPs per dot, two dots per visit, t < k) and flush
+    (2 k n^2 FLOPs) per walker and flavor; G read once and written once,
+    the order, gb, delta and us read and the flags written once."""
+    ops, v0 = 0, 0
+    while v0 < n:
+        cnt = min(k, n - v0)
+        ops += 2 * n * cnt * (cnt - 1) + 2 * cnt * n * n
+        v0 += cnt
+    return (W * nfl * ops,
+            itemsize * W * (2 * nfl * n * n + (4 + nfl) * n))
+
+
 def _shared_order_rows(torch, K, P, G3, args, W, n, k):
-    """(kernel, plain, library, ops, bytes, scheme) per kernel of #3 and
-    #5 at the first block of a shared-order slice."""
+    """(kernel, plain, library, ops, bytes, scheme) per kernel of #3 (the
+    whole slice) and #5 (its first block) on a shared-order slice; the
+    kernel and library times of the slice and the flush are device
+    times."""
     acc, order, gb, delta, us = args
     buf = lambda *shape: torch.zeros((W,) + shape, dtype=G3.dtype,
                                      device="cuda")
-    U, V, Wm, Ut, M = buf(k, n), buf(k, n), buf(k, k), buf(k, n), buf(k, n)
+    Wm, Ut, M = buf(k, k), buf(k, n), buf(k, n)
     blk = (acc, order, gb, delta, us, 0, k)
-    Gw = G3.clone()
-    K.delayed_block(G3, U, V, *blk)
+    Gw, Gs = G3.clone(), G3.clone()
     K.submatrix_decide(G3, Wm, *blk)
     n_acc = int(acc[:, :k].sum())
     K.submatrix_prep(G3, Wm, Ut, M, order, 0, k)
     flush_ops, flush_bytes = 2 * W * k * n * n, 4 * W * (2 * k * n
                                                          + 2 * n * n)
+    sl = (acc, order, gb, delta, us, k)
     return {
-        "delayed_sites": (
-            lambda: K.delayed_block(G3, U, V, *blk),
-            lambda: P.delayed_block(G3, U.clone(), V.clone(), *blk), None,
-            W * 2 * n * k * (k - 1), 4 * W * (4 * k * n + 5 * k),
-            "#3 shared"),
-        "delayed_flush": (
-            lambda: K.delayed_flush(Gw, U, V, k),
-            lambda: P.delayed_flush(Gw, U, V, k),
-            lambda: Gw.baddbmm_(U.mT, V), flush_ops, flush_bytes,
-            "#3 shared"),
+        "delayed_slice": (
+            lambda: K.delayed_slice(Gs, *sl),
+            lambda: P.delayed_slice(Gs.clone(), acc.clone(), *sl[1:]), None,
+            *slice_bound(W, n, k, 1), "#3 shared"),
         "submatrix_decide": (
             lambda: K.submatrix_decide(G3, Wm, *blk),
             lambda: P.submatrix_decide(G3, Wm.clone(), *blk), None,
@@ -879,17 +934,23 @@ def time_site_kernels(torch, gen, tk, report, slice_err):
     K, P = tk.KERNELS, tk.PLAIN
     rows = _shared_order_rows(torch, K, P, G3, args(orders[0]), W, n, k)
     rows.update(_per_walker_rows(torch, K, P, G3, args(orders), W, n))
+    # device time (a CUDA graph of calls) where one launch is short enough
+    # for events around it to time the host
+    graphed = {"delayed_slice": 5, "submatrix_flush": 30}
     for name, (kern, plain, lib, ops, nbytes, scheme) in rows.items():
-        ms = cuda_ms(kern, 5)
+        reps = graphed.get(name)
+        ms = device_ms(kern, reps) if reps else cuda_ms(kern, 5)
         plain_ms = cuda_ms(plain, 1)
-        lib_ms = cuda_ms(lib, 5) if lib else None
+        lib_ms = device_ms(lib, reps) if lib else None
         record(report, name, max_abs_err=slice_err[scheme], ms=ms,
                plain_ms=plain_ms, ops=ops, nbytes=nbytes, library_ms=lib_ms)
         r = report[name]
-        say(f"phase 6: {name} f32 W={W} ns={n} k={k}, one launch: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            + (f"one torch.baddbmm {lib_ms:.4f} ms, " if lib else
-               "no single library call, ")
+        what = "one slice" if name == "delayed_slice" else "one launch"
+        say(f"phase 6: {name} f32 W={W} ns={n} k={k}, {what}: kernel "
+            f"{ms:.4f} ms{' (device time)' if reps else ''}, plain "
+            f"{plain_ms:.3f} ms, "
+            + (f"one torch.baddbmm {lib_ms:.4f} ms (device time), " if lib
+               else "no single library call, ")
             + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
@@ -961,7 +1022,7 @@ def phase_stretch(torch):
     """bench.py's stretch configuration through the entry point: the
     per-slice engine (ns = 1024 > 512), #3 by default and #5 with
     site_update = submatrix; K1 stabilizes both."""
-    site = ("delayed_sites", "delayed_flush")
+    site = ("delayed_slice",)
     sub = ("submatrix_decide", "submatrix_prep", "submatrix_flush")
     run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 n_stab=5 W=4 "
                "f32, engine = auto (per slice, site_update = pallas: #3), "
@@ -986,7 +1047,7 @@ def phase_basic_slice(torch):
     run_params(torch, text + cut + "site_update = delayed\n",
                "examples/basic, engine = slice, site_update = delayed "
                "(#3, per-walker order, k=32), n_stab=5, 20 + 2x10 pairs",
-               ("delayed_sites", "delayed_flush", "cgs2_qr"), "phase 8")
+               ("delayed_slice", "cgs2_qr"), "phase 8")
 
 
 def _profiled(torch, label, step, states, n_pairs, phase="phase 9",
@@ -1106,7 +1167,11 @@ def phase_two_flavor_sites(torch, gen, report):
         return float((Gk - Gp).abs().max())
 
     slice_err = None
-    for W, L, k in SITE_SHAPES_2F:
+    # the shapes of SITE_SHAPES_2F with one shared order at JAX's rank, then
+    # examples/basic's per-walker scheme at delay_rank = 32 (groups of 32 +
+    # 4)
+    for W, L, k, shared in [s + (True,) for s in SITE_SHAPES_2F] + [
+            (4, 6, 32, False)]:
         ns = L * L
         for dtype in (torch.float64, torch.float32):
             model = RepulsiveHubbard.build(
@@ -1114,8 +1179,9 @@ def phase_two_flavor_sites(torch, gen, report):
                 dtype=dtype, device="cuda")
             states = init_state(model, EngineConfig(nt=20, n_stab=5),
                                 make_generators(5, W, "cuda"))
-            order = torch.argsort(torch.rand((ns,), generator=gen,
-                                             device="cuda"))
+            order = torch.argsort(torch.rand((ns,) if shared else (W, ns),
+                                             generator=gen, device="cuda"),
+                                  dim=-1)
             props = torch.randint(0, 3, (W, ns), generator=gen,
                                   device="cuda")
             us = torch.rand((W, ns), generator=gen, device="cuda",
@@ -1123,7 +1189,9 @@ def phase_two_flavor_sites(torch, gen, report):
             args = (model.g.expand(W), model.alpha.expand(W), order, props,
                     us, states.G, states.fields[:, 0])
             err = compare(f"phase 10: #4 {str(dtype)[6:]} W={W} ns={ns} "
-                          f"k={k} mu=0", args, dict(k_delay=k), dtype)
+                          f"k={k} mu=0"
+                          + ("" if shared else " per-walker order"), args,
+                          dict(k_delay=k, exact_rank=not shared), dtype)
             if dtype == torch.float64 and ns == SITE_SHAPES_2F[-1][1] ** 2:
                 slice_err = err
     # the sign path: doped couplings (g of U=6, dtau=0.25) on a fake G
@@ -1150,7 +1218,7 @@ def phase_two_flavor_sites(torch, gen, report):
                     f"doped fake G (seed {seed})", args, dict(k_delay=k),
                     dtype, want)
 
-    # one launch of 32 visits at the stretch shape, f32, both flavors
+    # one whole slice at the stretch shape, f32, both flavors
     W, L, k = SITE_SHAPES[-1]
     n = L * L
     dt = torch.float32
@@ -1168,28 +1236,21 @@ def phase_two_flavor_sites(torch, gen, report):
         order.long().expand(W, n), props, dt, 2)
     gb, delta = gb.contiguous(), delta.contiguous()
     G = states.G.contiguous()
-    U = torch.zeros((W, 2, k, n), dtype=dt, device="cuda")
-    V = torch.zeros_like(U)
     acc = torch.empty((W, n), dtype=dt, device="cuda")
     sgn = torch.ones((W,), dtype=dt, device="cuda")
-    blk = (acc, order, gb, delta, us, 0, k, sgn)
+    sl = (acc, order, gb, delta, us, k, sgn)
     K, P = tk.KERNELS, tk.PLAIN
-    ms = cuda_ms(lambda: K.delayed_block(G, U, V, *blk), 5)
-    plain_ms = cuda_ms(lambda: P.delayed_block(G, U.clone(), V.clone(),
-                                               *blk), 1)
-    record(report, "delayed_sites_2f", max_abs_err=slice_err, ms=ms,
-           plain_ms=plain_ms, ops=W * 2 * 2 * n * k * (k - 1),
-           nbytes=4 * W * (8 * k * n + 6 * k))
-    Gw = G.clone()
-    fms = cuda_ms(lambda: K.delayed_flush(Gw, U, V, k), 5)
-    lib = cuda_ms(lambda: Gw.view(2 * W, n, n).baddbmm_(
-        U.view(2 * W, k, n).mT, V.view(2 * W, k, n)), 5)
-    r = report["delayed_sites_2f"]
-    say(f"phase 10: delayed_sites_2f f32 W={W} ns={n} k={k}, one launch: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, no single library "
-        f"call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); its flush "
-        f"over 2W matrices (delayed_flush) {fms:.4f} ms, one torch.baddbmm "
-        f"{lib:.4f} ms")
+    ms = device_ms(lambda: K.delayed_slice(G, *sl), 5)
+    plain_ms = cuda_ms(lambda: P.delayed_slice(G.clone(), acc.clone(),
+                                               *sl[1:-1], sgn.clone()), 1)
+    ops, nbytes = slice_bound(W, n, k, 2)
+    record(report, "delayed_slice_2f", max_abs_err=slice_err, ms=ms,
+           plain_ms=plain_ms, ops=ops, nbytes=nbytes)
+    r = report["delayed_slice_2f"]
+    say(f"phase 10: delayed_slice_2f f32 W={W} ns={n} k={k}, one slice: "
+        f"kernel {ms:.4f} ms (device time), plain {plain_ms:.3f} ms, no "
+        f"single library call, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
 
 
 # W, L, beta, nt, n_slices of the fused 2-flavor and submatrix checks
@@ -1535,7 +1596,7 @@ def phase_repulsive(torch):
     """bench.py's repulsive preset through run_simulation on both engines,
     then a doped run."""
     fused_need = ("cgs2_qr", "fused_wrap", "fused_sites_2f")
-    slice_need = ("cgs2_qr", "delayed_sites_2f", "delayed_flush")
+    slice_need = ("cgs2_qr", "delayed_slice_2f")
     runs = (
         ("n_therms = 20\nn_bins = 4\nn_sweeps = 10\n", "engine = auto "
          "(fused: #2b + K1), 20 + 4x10 pairs", fused_need),
@@ -1783,7 +1844,7 @@ def phase_df32_headline(torch):
     summary = run_params(
         torch, HEADLINE_DF32, "df32 headline 16x16 beta=8 nt=160 n_stab=5 "
         "W=16, dtype = df32, 1 + 1 pairs",
-        ("df_qr_panel", "cgs2_qr", "delayed_sites", "delayed_flush"),
+        ("df_qr_panel", "cgs2_qr", "delayed_slice"),
         "phase 15")
     G64, _ = _f64_rebuild(torch, Parameters.from_string(HEADLINE_DF32),
                           summary.states.fields)
@@ -1907,12 +1968,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "dqmc_tpu/engine/fused.py:69"),
     "fused_sites_sub": ("dqmc_tpu_torch/csrc/fused_block.cu",
                         "dqmc_tpu/engine/fused.py:288"),
-    "delayed_sites": ("dqmc_tpu_torch/csrc/site_update.cu",
+    "delayed_slice": ("dqmc_tpu_torch/csrc/site_update.cu",
                       "dqmc_tpu/ops/kernels.py:121"),
-    "delayed_sites_2f": ("dqmc_tpu_torch/csrc/site_update.cu",
+    "delayed_slice_2f": ("dqmc_tpu_torch/csrc/site_update.cu",
                          "dqmc_tpu/ops/kernels.py:222"),
-    "delayed_flush": ("dqmc_tpu_torch/csrc/site_update.cu",
-                      "dqmc_tpu/ops/kernels.py:121"),
     "rank1_sites": ("dqmc_tpu_torch/csrc/site_update.cu",
                     "dqmc_tpu/ops/kernels.py:31"),
     "submatrix_decide": ("dqmc_tpu_torch/csrc/submatrix_update.cu",

@@ -40,23 +40,21 @@ SOURCE_FLAGS = {"mw_qr_panel.cu": ("--fmad=false",)}
 # kernel name -> launches since the last reset
 LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0,
             "fused_sites_2f": 0, "fused_sites_sub": 0,
-            "delayed_sites": 0, "delayed_sites_2f": 0, "delayed_flush": 0,
+            "delayed_slice": 0, "delayed_slice_2f": 0,
             "rank1_sites": 0, "submatrix_decide": 0, "submatrix_prep": 0,
             "submatrix_flush": 0, "df_qr_panel": 0, "tf_qr_panel": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SITE_LOOP = (_P, _P, _LL, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P)
-_DELAYED_SITES = (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I, _I,
-                  _I, _P)
+_DELAYED_SLICE = (_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P)
 _SIGNATURES = {  # each has a _f32 and a _f64 entry point
     "dqmc_cgs2_qr": (_P, _P, _P, _P, _P, _I, _I, _P),
     "dqmc_wrap_gemm": (_P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P),
     "dqmc_site_loop": _SITE_LOOP,
     "dqmc_site_loop_2f": _SITE_LOOP,
     "dqmc_site_loop_sub": (_P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
-    "dqmc_delayed_sites": _DELAYED_SITES,
-    "dqmc_delayed_sites_2f": _DELAYED_SITES,
-    "dqmc_delayed_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "dqmc_delayed_slice": _DELAYED_SLICE,
+    "dqmc_delayed_slice_2f": _DELAYED_SLICE,
     "dqmc_rank1_sites": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _P),
     "dqmc_submatrix_decide": (_P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I,
                               _I, _I, _P),
@@ -154,6 +152,9 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.dqmc_cgs2_workspace.argtypes = [_I, _I]
             handle.dqmc_cgs2_workspace.restype = _LL
+            handle.dqmc_site_cluster.argtypes = [_I, _I]
+            handle.dqmc_site_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
+            handle.dqmc_site_smem_bytes.restype = _LL
             handle.dqmc_error_string.argtypes = [ctypes.c_int]
             handle.dqmc_error_string.restype = ctypes.c_char_p
             _lib = handle

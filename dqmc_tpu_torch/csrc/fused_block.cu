@@ -57,41 +57,31 @@
 //
 // The site loop spreads each walker over a thread-block cluster of C CTAs
 // (C = 2 ... 16 from ns, so that a CTA owns at most 32 indices: 8 at the
-// headline's ns = 256, 128 CTAs for 16 walkers).  A CTA keeps U and V only
-// for its own indices, a panel of G's rows and columns at the group's k
-// sites, and the pending U/V entries at the sites still to be visited,
-// which their owner sends to every CTA with st.async as it makes them; so
-// each CTA takes every decision itself on the same bits, no decision
-// travels, and a visit waits only for its own site's entries (an mbarrier
-// per slot).  The flush then runs on all C SMs at once, each over its own
-// rows, with V read from its owners' shared memory.  G stays in global
-// memory (L2).  Every shape of the JAX kernel fits (ns <= 512, k <= 32, one
-// or two flavors, f32 or f64: at most 119,680 bytes of shared memory).
+// headline's ns = 256, 128 CTAs for 16 walkers), in the body it shares with
+// the per-slice engine's delayed slice (site_loop.cuh): a CTA keeps U and V
+// only for its own indices and the group's panels of G, the owner of a
+// pending U/V entry sends it to every CTA with st.async, each CTA takes
+// every decision itself on the same bits, and the flush runs on all C SMs
+// at once.  G stays in global memory (L2).  Every shape of the JAX kernel
+// fits (ns <= 512, k <= 32, one or two flavors, f32 or f64: at most 119,680
+// bytes of shared memory).
 // Plain FP32/FP64 FMA, no tensor cores; no atomics, so a second call gives
 // the same bits, and the same bits as the one-CTA loop it replaced.  The
 // submatrix loop keeps one CTA per walker: its flush operands (2 k ns
 // elements) beside 9 KB (f32) of decision data, its in-CTA flush as the
 // first design of the delayed loop had it.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "site_loop.cuh"
 #include "submatrix_decide.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int KMAX = 32;
+using dqmc::SITE_THREADS;  // the delayed loop's CTA
+using dqmc::Vec;
+constexpr int KMAX = dqmc::SITE_KMAX;
 constexpr int SITE_THREADS_MAX = 512;  // one thread per column, ns <= 512
-constexpr int SITE_THREADS = 256;      // the delayed loop's CTA
-constexpr int SITE_CLUSTER_MAX = 16;   // CTAs per walker (non-portable > 8)
-
-// 16 bytes of T: one float4 or double2 load or store
-template <typename T>
-struct alignas(16) Vec {
-  T v[16 / sizeof(T)];
-};
 
 // C = diag(r) A diag(m) B diag(c) for a batch, one BM x BN output tile per
 // CTA and a TM x TN register tile per thread, BK deep per shared tile.
@@ -293,395 +283,18 @@ wrap_gemm_kernel(T* __restrict__ C, const T* __restrict__ A, long long sA,
   }
 }
 
-// The delayed site loop's cluster for a slice of n sites: C CTAs (a power
-// of two, at most 16) split the n indices into blocks of R <= 32, so that
-// one warp of each CTA carries its block's part of every visit.  The
-// shared-memory layout below: one 8-byte mbarrier per slot (kp, k rounded
-// up to 8); in elements of T, own U, own V, and the group's column and row
-// panels of G (each NFL x k x Rp, Rp = R rounded up to 4 so that each row
-// of U is 16-byte aligned), the future-column buffers FU, FV (NFL x k x
-// kp), the group's diagonal (NFL x k), and the slice's gb, us (n each) and
-// delta (NFL x n); then, as ints, the visit order (n), the accept flags (n)
-// and the visit slot of each own index (Rp).  engine/fused.py
-// site_loop_smem mirrors it.
-struct SiteCluster {
-  int C, R, Rp, threads;
-};
-
-__host__ __device__ inline SiteCluster site_cluster(int n) {
-  int C = 1;
-  while (C < SITE_CLUSTER_MAX && (n + C - 1) / C > 32) C *= 2;
-  const int R = (n + C - 1) / C;
-  // 16-CTA clusters (ns > 256) ran faster with 128 threads per CTA than
-  // with 256 (an H100: 1.12 against 1.58 ms per slice at (16, 448) f32)
-  const int cap = C == SITE_CLUSTER_MAX ? SITE_THREADS / 2 : SITE_THREADS;
-  const int threads = n >= cap ? cap : (n + 31) / 32 * 32;
-  return {C, R, (R + 3) / 4 * 4, threads};
-}
-
-template <typename T>
-size_t site_smem_bytes(int n, int k, int nfl) {
-  const size_t Rp = site_cluster(n).Rp, kp = (k + 7) / 8 * 8;
-  return 8 * kp +
-         sizeof(T) * (nfl * (4 * k * Rp + 2 * k * kp + k) +
-                      (2 + nfl) * (size_t)n) +
-         sizeof(int) * (2 * n + Rp);
-}
-
-// The visits' handoff between the CTAs of a cluster (PTX for sm_90): a
-// pending U or V entry goes to a peer's shared memory with st.async, which
-// also counts its bytes on the peer's mbarrier of the entry's slot; the
-// peer waits for that barrier's phase (one per group) with acquire
-// semantics, and the entries are then visible.  No fence and no flag.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void st_async(unsigned dst, float v,
-                                         unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];" ::"r"(dst),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_async(unsigned dst, double v,
-                                         unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
-      "[%2];" ::"r"(dst),
-      "l"(__double_as_longlong(v)), "r"(bar)
-      : "memory");
-}
-
-// One slice of the delayed Metropolis site loop on one cluster per walker
-// (blockIdx.y = walker, blockIdx.x = the CTA's rank c in the cluster).  CTA
-// c owns the indices a0 = c R ... a0 + own - 1: their rows of U (U[s][a] =
-// prefac_s col_s[a]) and columns of V (V[s][a] = row_s[a] - [a == i_s]),
-// and their rows of G for the flush.  Per group of k visits:
-//   1. the group's panels from G (global memory, L2): GC[t][l] = G[a][i_t],
-//      GR[t][l] = G[i_t][a] and GD[t] = G[i_t][i_t], and pos[l], the slot
-//      at which own index a is visited in this group (or -1);
-//   2. k visits by warp 0 of every CTA (the other warps wait at the
-//      cluster barrier that ends the visits).  Every CTA forms G_ii of the
-//      visit's site from GD and the future-column buffers FU[t][s] =
-//      U[s][i_t], FV[t][s] = V[s][i_t], and takes the same decision on the
-//      same bits, so no decision travels; lane l then forms its index's
-//      effective column and row entries and its U and V slot.  An own index
-//      visited later in the group (at slot p > t) sends its new U and V
-//      entries to FU[p][t], FV[p][t] of every CTA with st.async, counted on
-//      that CTA's mbarrier of slot p; visit p waits for the barrier's phase
-//      of this group, which completes when all 2 NFL p entries are in;
-//   3. the flush of the CTA's own rows, G[a][j] += sum_s U[s][a] V[s][j],
-//      with V[s][j] read from the shared memory of j's owner, then one
-//      cluster barrier (G's rows and the V slots are free again).
-// The accept mask is written once, at the end.  Every sum keeps the order,
-// and every product and sum the rounding, of the one-CTA loop this
-// replaces (written as fma() so that no compiler choice moves it): the
-// visit dots in s order on G's entry, r = fma(1 - G_ii, delta, 1), and the
-// flush's sum from 0 in s order before it is added to G.  NFL = 1: one
-// stored flavor, R = gb r^2 (>= 0).  NFL = 2 (the repulsive model): the
-// walker's two flavor chains are consecutive matrices of G and consecutive
-// rows of delta; each visit forms both flavors' G_ii before the one
-// decision on R = gb r_up r_dn, accepted on |R|, and the walker's sgn is
-// multiplied by -1 per accepted R < 0.
-template <typename T, int NFL>
-__device__ __forceinline__ void site_loop_body(
-    T* __restrict__ G, T* __restrict__ mask, long long s_mask,
-    const int* __restrict__ order, const T* __restrict__ gb,
-    const T* __restrict__ delta, const T* __restrict__ us,
-    long long s_stream, T* __restrict__ sgn, int n, int k) {
-  constexpr int VW = 16 / sizeof(T);
-  constexpr int BS = sizeof(T) == 4 ? 8 : 4;  // a block of the visit dots
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int c = (int)cluster.block_rank();
-  const int R = (n + C - 1) / C;
-  const int Rp = (R + 3) / 4 * 4;
-  const int a0 = c * R;
-  const int own = max(0, min(R, n - a0));
-  const int kR = k * Rp;
-  const int kp = (k + 7) / 8 * 8;
-  unsigned long long* bars =                // kp: slot p's entries
-      reinterpret_cast<unsigned long long*>(smem_raw);
-  T* Uo = reinterpret_cast<T*>(bars + kp);  // NFL x k x Rp
-  T* Vo = Uo + NFL * kR;                   // NFL x k x Rp
-  T* GC = Vo + NFL * kR;                   // NFL x k x Rp: G[a][i_t]
-  T* GR = GC + NFL * kR;                   // NFL x k x Rp: G[i_t][a]
-  T* FU = GR + NFL * kR;                   // NFL x k x kp: U[s][i_t]
-  T* FV = FU + NFL * k * kp;               // NFL x k x kp: V[s][i_t]
-  T* GD = FV + NFL * k * kp;               // NFL x k: G[i_t][i_t]
-  T* gbs = GD + NFL * k;
-  T* uss = gbs + n;
-  T* dls = uss + n;                        // NFL x n
-  int* ords = reinterpret_cast<int*>(dls + NFL * n);
-  int* accs = ords + n;                    // n, by visit
-  int* pos = accs + n;                     // Rp
-
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int w = blockIdx.y;
-  const long long nn = (long long)n * n;
-  T* Gw = G + w * NFL * nn;
-  mask += w * s_mask;
-  gb += w * s_stream;
-  delta += w * NFL * s_stream;
-  us += w * s_stream;
-  for (int e = tid; e < n; e += nthreads) {
-    ords[e] = order[e];
-    gbs[e] = gb[e];
-    uss[e] = us[e];
-#pragma unroll
-    for (int f = 0; f < NFL; ++f) dls[f * n + e] = delta[f * s_stream + e];
-  }
-  if (tid < kp) mbar_init(smem_addr(bars + tid), 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  T sign = T(1);
-  // every CTA of the cluster runs before any writes to another's memory
-  cluster.sync();
-
-  for (int g0 = 0; g0 < n; g0 += k) {
-    const int group = g0 / k;
-    // 1. the group's panels of G and the slots of the own indices
-    for (int l = tid; l < Rp; l += nthreads) pos[l] = -1;
-    __syncthreads();
-    for (int t = tid; t < k; t += nthreads) {
-      const int i = ords[g0 + t];
-      if (i >= a0 && i < a0 + own) pos[i - a0] = t;
-    }
-    for (int e = tid; e < NFL * kR; e += nthreads) {
-      const int l = e % Rp;
-      if (l >= own) continue;
-      const int f = e / kR, t = (e / Rp) % k;
-      const int i = ords[g0 + t];
-      const T* Gf = Gw + f * nn;
-      GC[e] = __ldcg(Gf + (long long)(a0 + l) * n + i);
-      GR[e] = __ldcg(Gf + (long long)i * n + a0 + l);
-    }
-    for (int e = tid; e < NFL * k; e += nthreads) {
-      const int i = ords[g0 + e % k];
-      GD[e] = __ldcg(Gw + (e / k) * nn + (long long)i * n + i);
-    }
-    __syncthreads();
-
-    // 2. the group's visits, by warp 0; lane l carries own index a0 + l
-    // (lanes at or past `own` compute on other entries and keep nothing)
-    if (tid < 32) {
-      const int l = tid;
-      const int p = l < own ? pos[l] : -1;
-      // this group's phase of each slot's barrier: 2 NFL t entries of T
-      for (int t = 1 + l; t < k; t += 32)
-        mbar_expect(smem_addr(bars + t), 2 * NFL * t * sizeof(T));
-      for (int t = 0; t < k; ++t) {
-        const int i = ords[g0 + t];
-        if (t > 0) mbar_wait(smem_addr(bars + t), group & 1);
-        T gii[NFL], col[NFL], row[NFL];
-#pragma unroll
-        for (int f = 0; f < NFL; ++f) {
-          gii[f] = GD[f * k + t];
-          col[f] = GC[(f * k + t) * Rp + l];
-          row[f] = GR[(f * k + t) * Rp + l];
-        }
-        // in blocks of BS steps: every load of a block issued at once from
-        // an address clamped into its buffer, each step's result kept only
-        // for s < t
-#pragma unroll
-        for (int s0 = 0; s0 < KMAX; s0 += BS) {
-          if (s0 < t) {
-#pragma unroll
-            for (int f = 0; f < NFL; ++f) {
-              const T* fu = FU + (f * k + t) * kp + s0;
-              const T* fv = FV + (f * k + t) * kp + s0;
-              T a[BS], b[BS], uo[BS], vo[BS];
-#pragma unroll
-              for (int q = 0; q < BS; q += VW) {
-                const Vec<T> x = *reinterpret_cast<const Vec<T>*>(fu + q);
-                const Vec<T> y = *reinterpret_cast<const Vec<T>*>(fv + q);
-#pragma unroll
-                for (int e = 0; e < VW; ++e) {
-                  a[q + e] = x.v[e];
-                  b[q + e] = y.v[e];
-                }
-              }
-#pragma unroll
-              for (int q = 0; q < BS; ++q) {
-                const int at = f * kR + min(s0 + q, k - 1) * Rp + l;
-                uo[q] = Uo[at];
-                vo[q] = Vo[at];
-              }
-#pragma unroll
-              for (int q = 0; q < BS; ++q) {
-                const bool on = s0 + q < t;
-                const T g2 = fma(a[q], b[q], gii[f]);
-                const T r2 = fma(a[q], vo[q], row[f]);
-                const T c2 = fma(b[q], uo[q], col[f]);
-                gii[f] = on ? g2 : gii[f];
-                row[f] = on ? r2 : row[f];
-                col[f] = on ? c2 : col[f];
-              }
-            }
-          }
-        }
-        T d[NFL], rf[NFL];
-#pragma unroll
-        for (int f = 0; f < NFL; ++f) {
-          d[f] = dls[f * n + i];
-          rf[f] = fma(T(1) - gii[f], d[f], T(1));
-        }
-        bool accept;
-        if (NFL == 1) {
-          const T ratio = gbs[i] * rf[0] * rf[0];  // >= 0: gb > 0, a square
-          accept = uss[g0 + t] < ratio;
-        } else {
-          const T ratio = gbs[i] * rf[0] * rf[NFL - 1];
-          // u < 1 strictly
-          accept = uss[g0 + t] < (ratio < T(0) ? -ratio : ratio);
-          if (accept && ratio < T(0)) sign = -sign;
-        }
-        if (l < own) {
-#pragma unroll
-          for (int f = 0; f < NFL; ++f) {
-            const T prefac = accept ? d[f] / rf[f] : T(0);
-            const T u = prefac * col[f];
-            const T v = row[f] - (a0 + l == i ? T(1) : T(0));
-            Uo[f * kR + t * Rp + l] = u;
-            Vo[f * kR + t * Rp + l] = v;
-            if (p > t) {
-              const int at = (f * k + p) * kp + t;
-              const unsigned du = smem_addr(FU + at), dv = smem_addr(FV + at);
-              const unsigned bar = smem_addr(bars + p);
-              for (int r = 0; r < C; ++r) {
-                const unsigned rb = peer_addr(bar, r);
-                st_async(peer_addr(du, r), u, rb);
-                st_async(peer_addr(dv, r), v, rb);
-              }
-            }
-          }
-        }
-        if (l == 0) accs[g0 + t] = accept;
-      }
-    }
-    cluster.sync();
-
-    // 3. G[a][j] += sum_s U[s][a] V[s][j] over the own rows a
-#pragma unroll
-    for (int f = 0; f < NFL; ++f) {
-      const T* Uf = Uo + f * kR;
-      T* Gf = Gw + f * nn + (long long)a0 * n;
-      for (int j = tid; j < n; j += nthreads) {
-        const int r = j / R;
-        const T* Vr = cluster.map_shared_rank(Vo, r) + f * kR + (j - r * R);
-        // float32: the column of V in registers first, its loads in flight
-        // together (float64 needs those registers for the sums)
-        T vv[KMAX];
-        if (sizeof(T) == 4) {
-#pragma unroll
-          for (int s = 0; s < KMAX; ++s) vv[s] = Vr[min(s, k - 1) * Rp];
-        }
-        T acc[32];
-#pragma unroll
-        for (int l = 0; l < 32; ++l) acc[l] = T(0);
-        if (k == KMAX && Rp == 32) {
-          // the full block (the headline's shape): no step to skip
-#pragma unroll
-          for (int s = 0; s < KMAX; ++s) {
-            const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
-#pragma unroll
-            for (int l = 0; l < 32; l += VW) {
-              const Vec<T> u =
-                  *reinterpret_cast<const Vec<T>*>(Uf + s * 32 + l);
-#pragma unroll
-              for (int q = 0; q < VW; ++q)
-                acc[l + q] = fma(u.v[q], v, acc[l + q]);
-            }
-          }
-        } else {
-#pragma unroll
-          for (int s = 0; s < KMAX; ++s) {
-            if (s < k) {
-              const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
-#pragma unroll
-              for (int l = 0; l < 32; l += VW) {
-                if (l < Rp) {
-                  const Vec<T> u =
-                      *reinterpret_cast<const Vec<T>*>(Uf + s * Rp + l);
-#pragma unroll
-                  for (int q = 0; q < VW; ++q)
-                    acc[l + q] = fma(u.v[q], v, acc[l + q]);
-                }
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int l = 0; l < 32; ++l)
-          if (l < own) {
-            T* g = Gf + (long long)l * n + j;
-            *g = __ldcg(g) + acc[l];
-          }
-      }
-    }
-    __threadfence();
-    cluster.sync();
-  }
-  if (c == 0) {
-    for (int e = tid; e < n; e += nthreads)
-      if (accs[e]) mask[ords[e]] = T(1);
-    if (NFL == 2 && tid == 0) sgn[w] *= sign;
-  }
-}
-
 // Two CTAs per SM at most 128 registers each: a cluster of 8 then finds
-// room on any 4 SMs of a GPC.
+// room on any 4 SMs of a GPC.  The body is site_loop.cuh's, with R <= 32.
 template <typename T>
 __global__ void __launch_bounds__(SITE_THREADS, 2)
-site_loop_kernel(T* G, T* mask, long long s_mask, const int* order,
-                 const T* gb, const T* delta, const T* us,
-                 long long s_stream, T* sgn, int n, int k) {
-  site_loop_body<T, 1>(G, mask, s_mask, order, gb, delta, us, s_stream, sgn,
-                       n, k);
+site_loop_kernel(const dqmc::SiteLoopArgs<T> args) {
+  dqmc::site_loop_body<T, 1, 32>(args);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(SITE_THREADS, 2)
-site_loop_2f_kernel(T* G, T* mask, long long s_mask, const int* order,
-                    const T* gb, const T* delta, const T* us,
-                    long long s_stream, T* sgn, int n, int k) {
-  site_loop_body<T, 2>(G, mask, s_mask, order, gb, delta, us, s_stream, sgn,
-                       n, k);
+site_loop_2f_kernel(const dqmc::SiteLoopArgs<T> args) {
+  dqmc::site_loop_body<T, 2, 32>(args);
 }
 
 // One slice of the submatrix scheme (one stored flavor); blockIdx.x =
@@ -803,31 +416,12 @@ int launch_sites(T* G, T* mask, long long s_mask, const int* order,
   if (n <= 0 || n > 512 || k <= 0 || k > KMAX || n % k != 0 || batch <= 0 ||
       batch > 65535 || (NFL == 2 && sgn == nullptr))
     return (int)cudaErrorInvalidValue;
-  const SiteCluster cl = site_cluster(n);
-  const size_t smem = site_smem_bytes<T>(n, k, NFL);
-  auto kernel = NFL == 1 ? site_loop_kernel<T> : site_loop_2f_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cl.C > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl.C, batch, 1);
-  cfg.blockDim = dim3(cl.threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, G, mask, s_mask, order, gb, delta,
-                           us, s_stream, sgn, n, k);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  static dqmc::SiteLaunchCache cache;
+  const dqmc::SiteLoopArgs<T> args{G,  mask,  s_mask,   order, 0,   gb, delta,
+                                   us, s_stream, sgn, n,     k,   false};
+  return dqmc::launch_site_loop<T>(
+      NFL == 1 ? site_loop_kernel<T> : site_loop_2f_kernel<T>, cache, args,
+      NFL, 32, batch, stream);
 }
 
 template <typename T>

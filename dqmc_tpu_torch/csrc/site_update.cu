@@ -1,145 +1,82 @@
 // #3, #4 and #6: the per-slice engine's Metropolis site loops.
 //
 // Replaces: dqmc_tpu/ops/kernels.py::_batched_update_kernel (#3, the
-// walker-batched delayed rank-k loop with a shared visit order, reached
-// through _metropolis_batched_impl), ::_batched_update_kernel_2f (#4, its
+// walker-batched delayed rank-k loop, reached through
+// _metropolis_batched_impl), ::_batched_update_kernel_2f (#4, its
 // two-flavor variant for det_power = 1 models, reached through
 // _metropolis_batched_2f_impl: opposite couplings per flavor, the ratio
 // R = gb r_up r_dn taken once per flavor, Metropolis on |R|, a per-walker
 // sign) and ::_update_kernel (#6, one walker's rank-1 Sherman-Morrison loop
 // in its own order, metropolis_slice_update).  On the TPU each ran a whole
-// slice as one VMEM-resident program.
+// slice as one VMEM-resident program, the delayed ones flushing
+// G += U^T V every k visits inside it.
 //
-//   delayed_sites_kernel   k consecutive visits of one slice, one CTA per
-//                          walker: each visit forms the effective row and
-//                          column of G under the pending rank-k terms,
-//                          decides u < R with R = gb (1 + (1 - G_ii) delta)^2
-//                          and writes one slot of the U/V buffers (global
-//                          memory) and the per-visit accept flag.  Its
-//                          two-flavor instantiation (#4) forms both flavors'
-//                          G_ii before the one decision, writes both
-//                          flavors' slots and multiplies the walker's sign.
-//   rank_k_flush_kernel    (rank_k_flush.cuh) G += U^T V over many CTAs,
-//                          launched after each group of k visits; two
-//                          flavors are a batch of 2 W matrices.
+//   delayed_slice_kernel   #3 and #4: a whole slice -- all n visits and
+//                          all ceil(n / k) flushes -- on one thread-block
+//                          cluster per walker, in the body the fused
+//                          engine's site loop uses (site_loop.cuh).  Its
+//                          two-flavor instantiation forms both flavors'
+//                          G_ii before the one decision and multiplies the
+//                          walker's sign.
 //   rank1_sites_kernel     #6: a whole slice, one CTA per walker; an
 //                          accepted visit applies its rank-1 update to G
 //                          inside the CTA.
 //
 // The field-dependent factors gb = gamma ratio * boson ratio and
 // delta = exp(g d_eta) - 1 of every visit are computed by the host before
-// the slice (ops/kernels.py visit_factors): each site is visited once per
-// slice, so its pre-update field is the slice-start field.  The host also
-// turns the accept flags into the new fields.  The order has a stride: 0
-// for the shared order of #3, n for per-walker orders.
+// the slice (ops/kernels.py visit_factors), indexed by visit: each site is
+// visited once per slice, so its pre-update field is the slice-start
+// field.  The host also turns the accept flags (one per visit) into the new
+// fields.  The order has a stride: 0 for one shared order, n for
+// per-walker orders.  The last group of a slice may be short (n % k != 0).
 //
-// What bounds it on an H100: the visits of a slice are a chain of n
-// dependent steps, so one walker is one CTA on one SM (W of 132 SMs
-// busy).  At the stretch shape (n = 1024, k = 32) the U and V buffers are
-// 2 k n = 256 KB in f32, more than a CTA's 227 KB of shared memory, and a
-// visit reads on average k n of them: the site loop is bound by its L2
-// reads, and the flushes (2 k n^2 FLOPs each, 2 n^3 per slice) by FP32
-// throughput.  G (4 MB per walker) lives in global memory and L2.
+// What bounds the delayed slice on an H100: its n visits are a chain of
+// dependent steps, each waiting for the pending U/V entries at its site,
+// and each of the ceil(n / k) flushes is 2 k n^2 FLOPs per walker and
+// matrix (8.6 GFLOP per slice at the stretch shape W = 4, n = 1024,
+// k = 32: 0.13 ms at the FP32 FMA peak) on G, which lives in global memory
+// and L2 (4 MB per walker in f32).  The first design ran each group of k
+// visits as one launch on one CTA per walker (W of 132 SMs) with U and V
+// in L2 -- 256 KB per walker at the stretch shape, more than a CTA's 227
+// KB of shared memory -- re-read by every visit, and each flush as a
+// separate tiled launch over the whole card: 2 n / k launches per slice.
 //
-// What the design does about it: U and V stay in global memory (L2
-// resident; 256 KB per walker); a visit stages the 2 t coefficients of the
-// visited column through shared memory and each thread streams its own two
-// columns of U and V coalesced.  The flush leaves the sequential kernel and
-// runs as a tiled kernel over (tiles x walkers) CTAs, so it uses the whole
-// card; the launch order on the stream keeps the chain sequential.  Columns
-// of G are read strided (no G^T copy).  Plain FP32/FP64 FMA.
+// What the design does about it: one launch per slice.  A walker is a
+// cluster of the fewest CTAs (C = 1 ... 16) that own at most R = 64 sites
+// each (C = 1 up to n = 64, 4 at n = 256, 16 at n = 1024; one or two
+// warps of each CTA carry the visits), so U and V live in the cluster's
+// shared memory, O(k n / C) per CTA; the pending entries a visit needs
+// reach every CTA by st.async as their owner makes them, and each flush
+// runs on the walker's C SMs over each CTA's own rows, owner by owner
+// (each owner's block of V copied into local shared memory, the CTAs
+// visiting the owners in staggered order, each thread a 4 x 4 piece of
+// G).  (Fewer CTAs than the fused loop's R <= 32: at n = 36 one CTA per
+// walker is faster than two; at n = 256 four lose 8% to eight.)  What bounds it now: at n = 1024
+// a flush runs on C = 16 SMs per walker, 64 of 132 at W = 4, where the
+// FP32 FMA peak of those SMs alone is ~9 us per flush (an H100 takes ~40;
+// neither V's remote reads nor G's traffic nor the barriers account for
+// the rest); the visits (~0.76 ms per slice in float32) wait for one
+// cross-SM handoff each.
+// Every sum is an explicit fma() in the order of the first design (visit
+// dots in s order on G's entry, r = fma(1 - G_ii, delta, 1) -- rounded
+// product first with two flavors, as that kernel's build did -- and the
+// flush summed from 0 in s order, then added to G), so G, the flags and
+// the sign keep its bits.  A cluster the card cannot place raises;
+// nothing falls back.
 
 #include <cuda_runtime.h>
 
-#include "rank_k_flush.cuh"
+#include "site_loop.cuh"
 
 namespace {
 
-constexpr int SITE_THREADS = 512;
-constexpr int SITE_COLS = 2;  // columns per thread: n <= 1024
-constexpr int KMAX = dqmc::FLUSH_KMAX;
-
-// NFL = 1: one stored flavor, R = gb r^2 (>= 0).  NFL = 2 (#4): the
-// walker's two flavor matrices are consecutive in G, U and V and its deltas
-// consecutive rows of delta; R = gb r_up r_dn, accepted on |R|, and the
-// walker's sgn is multiplied by -1 per accepted R < 0.  s_uv is the stride
-// between two matrices' U (or V) buffers.
+// The fewest CTAs with R <= 64 sites each (C = 1 up to n = 64, 4 at 256, 16
+// at 1024), 128 or 256 threads; the flush by owner keeps two pieces of G
+// in registers.
 template <typename T, int NFL>
-__global__ void __launch_bounds__(SITE_THREADS)
-delayed_sites_kernel(const T* __restrict__ G, T* U, T* V, T* __restrict__ acc,
-                     T* __restrict__ sgn, const int* __restrict__ order,
-                     long long s_order, const T* __restrict__ gb,
-                     const T* __restrict__ delta,
-                     const T* __restrict__ us, long long s_uv, int n, int v0,
-                     int cnt) {
-  __shared__ T ucol[NFL][KMAX];  // U[s][i]: the visited column of pending U
-  __shared__ T vcol[NFL][KMAX];  // V[s][i]
-  const int w = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
-  const long long nn = (long long)n * n;
-  G += w * NFL * nn;
-  U += w * NFL * s_uv;
-  V += w * NFL * s_uv;
-  order += w * s_order;
-  const long long ws = (long long)w * n;
-  gb += ws;
-  delta += ws * NFL;
-  us += ws;
-  acc += ws;
-  T sign = T(1);
-
-  for (int t = 0; t < cnt; ++t) {
-    const int idx = v0 + t;
-    const int i = order[idx];
-    for (int e = tid; e < NFL * t; e += nthr) {
-      const int f = e / t, s = e - f * t;
-      ucol[f][s] = U[f * s_uv + (long long)s * n + i];
-      vcol[f][s] = V[f * s_uv + (long long)s * n + i];
-    }
-    __syncthreads();
-    // every thread forms the effective G_ii and the same decision
-    T d[NFL], rf[NFL];
-#pragma unroll
-    for (int f = 0; f < NFL; ++f) {
-      T gii = G[f * nn + (long long)i * n + i];
-      for (int s = 0; s < t; ++s) gii += ucol[f][s] * vcol[f][s];
-      d[f] = delta[f * n + idx];
-      rf[f] = T(1) + (T(1) - gii) * d[f];
-    }
-    bool accept;
-    if (NFL == 1) {
-      const T R = gb[idx] * rf[0] * rf[0];  // >= 0: gb > 0 times a square
-      accept = us[idx] < R;
-    } else {
-      const T R = gb[idx] * rf[0] * rf[NFL - 1];
-      accept = us[idx] < (R < T(0) ? -R : R);  // u < 1 strictly
-      if (accept && R < T(0)) sign = -sign;
-    }
-#pragma unroll
-    for (int f = 0; f < NFL; ++f) {
-      const T prefac = accept ? d[f] / rf[f] : T(0);
-      const T* Gf = G + f * nn;
-      T* Uf = U + f * s_uv;
-      T* Vf = V + f * s_uv;
-#pragma unroll
-      for (int c = 0; c < SITE_COLS; ++c) {
-        const int j = tid + c * nthr;
-        if (j < n) {
-          T row = Gf[(long long)i * n + j];
-          T col = Gf[(long long)j * n + i];
-#pragma unroll 4
-          for (int s = 0; s < t; ++s) {
-            row += ucol[f][s] * Vf[(long long)s * n + j];
-            col += vcol[f][s] * Uf[(long long)s * n + j];
-          }
-          Uf[(long long)t * n + j] = prefac * col;
-          Vf[(long long)t * n + j] = row - (j == i ? T(1) : T(0));
-        }
-      }
-    }
-    if (tid == 0) acc[idx] = accept ? T(1) : T(0);
-    __syncthreads();
-  }
-  if (NFL == 2 && tid == 0) sgn[w] *= sign;
+__global__ void __launch_bounds__(dqmc::SITE_THREADS, 1)
+delayed_slice_kernel(const dqmc::SiteLoopArgs<T> args) {
+  dqmc::site_loop_body<T, NFL, 64, NFL == 2>(args);
 }
 
 // #6: one walker's slice, rank-1 update per accepted visit.
@@ -185,17 +122,18 @@ __global__ void rank1_sites_kernel(T* G, T* __restrict__ acc,
 }
 
 template <typename T, int NFL>
-int launch_delayed_sites(const T* G, T* U, T* V, T* acc, T* sgn,
-                         const int* order, long long s_order, const T* gb,
-                         const T* delta, const T* us, long long s_uv, int n,
-                         int v0, int cnt, int batch, void* stream) {
-  if (n <= 0 || n > SITE_THREADS * SITE_COLS || cnt <= 0 || cnt > KMAX ||
-      v0 < 0 || v0 + cnt > n || batch <= 0 || (NFL == 2 && sgn == nullptr))
+int launch_delayed_slice(T* G, T* acc, const int* order, long long s_order,
+                         const T* gb, const T* delta, const T* us, T* sgn,
+                         int n, int k, int batch, void* stream) {
+  if (n <= 0 || n > 1024 || k <= 0 || k > dqmc::SITE_KMAX || batch <= 0 ||
+      batch > 65535 || (s_order != 0 && s_order != n) ||
+      (NFL == 2 && sgn == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = n >= SITE_THREADS ? SITE_THREADS : (n + 31) / 32 * 32;
-  delayed_sites_kernel<T, NFL><<<batch, threads, 0, (cudaStream_t)stream>>>(
-      G, U, V, acc, sgn, order, s_order, gb, delta, us, s_uv, n, v0, cnt);
-  return (int)cudaGetLastError();
+  const dqmc::SiteLoopArgs<T> args{G,  acc, n,   order, s_order, gb, delta,
+                                   us, n,   sgn, n,     k,       true};
+  static dqmc::SiteLaunchCache cache;
+  return dqmc::launch_site_loop<T>(delayed_slice_kernel<T, NFL>, cache, args,
+                                   NFL, 64, batch, stream);
 }
 
 template <typename T>
@@ -214,26 +152,19 @@ int launch_rank1_sites(T* G, T* acc, const int* order, long long s_order,
 }  // namespace
 
 #define DQMC_SITE_API(T, SFX)                                                \
-  extern "C" int dqmc_delayed_sites##SFX(                                    \
-      const T* G, T* U, T* V, T* acc, T* sgn, const int* order,              \
-      long long s_order, const T* gb, const T* delta, const T* us,           \
-      long long s_uv, int n, int v0, int cnt, int batch, void* stream) {     \
-    return launch_delayed_sites<T, 1>(G, U, V, acc, sgn, order, s_order, gb, \
-                                      delta, us, s_uv, n, v0, cnt, batch,    \
-                                      stream);                               \
+  extern "C" int dqmc_delayed_slice##SFX(                                    \
+      T* G, T* acc, const int* order, long long s_order, const T* gb,        \
+      const T* delta, const T* us, T* sgn, int n, int k, int batch,          \
+      void* stream) {                                                        \
+    return launch_delayed_slice<T, 1>(G, acc, order, s_order, gb, delta, us, \
+                                      sgn, n, k, batch, stream);             \
   }                                                                          \
-  extern "C" int dqmc_delayed_sites_2f##SFX(                                 \
-      const T* G, T* U, T* V, T* acc, T* sgn, const int* order,              \
-      long long s_order, const T* gb, const T* delta, const T* us,           \
-      long long s_uv, int n, int v0, int cnt, int batch, void* stream) {     \
-    return launch_delayed_sites<T, 2>(G, U, V, acc, sgn, order, s_order, gb, \
-                                      delta, us, s_uv, n, v0, cnt, batch,    \
-                                      stream);                               \
-  }                                                                          \
-  extern "C" int dqmc_delayed_flush##SFX(T* G, const T* U, const T* V,       \
-                                         long long s_uv, int n, int k,       \
-                                         int batch, void* stream) {          \
-    return dqmc::launch_rank_k_flush<T>(G, U, V, s_uv, n, k, batch, stream); \
+  extern "C" int dqmc_delayed_slice_2f##SFX(                                 \
+      T* G, T* acc, const int* order, long long s_order, const T* gb,        \
+      const T* delta, const T* us, T* sgn, int n, int k, int batch,          \
+      void* stream) {                                                        \
+    return launch_delayed_slice<T, 2>(G, acc, order, s_order, gb, delta, us, \
+                                      sgn, n, k, batch, stream);             \
   }                                                                          \
   extern "C" int dqmc_rank1_sites##SFX(                                      \
       T* G, T* acc, const int* order, long long s_order, const T* gb,        \
@@ -244,3 +175,17 @@ int launch_rank1_sites(T* G, T* acc, const int* order, long long s_order,
 
 DQMC_SITE_API(float, _f32)
 DQMC_SITE_API(double, _f64)
+
+// The cluster of the site loop for n sites with R <= rmax (32: the fused
+// loop, 64: the delayed slice): its CTAs per walker, and the dynamic shared
+// memory of one CTA in bytes at rank k, nfl flavors, itemsize 4 or 8
+// (ops/kernels.py delayed_slice_smem mirrors the second for the host).
+extern "C" int dqmc_site_cluster(int n, int rmax) {
+  return dqmc::site_cluster(n, rmax).C;
+}
+
+extern "C" long long dqmc_site_smem_bytes(int n, int k, int nfl,
+                                          int itemsize, int rmax) {
+  return itemsize == 8 ? dqmc::site_smem_bytes<double>(n, k, nfl, rmax)
+                       : dqmc::site_smem_bytes<float>(n, k, nfl, rmax);
+}

@@ -55,7 +55,7 @@ from dqmc_tpu_torch.ops import kernels
 from dqmc_tpu_torch.ops.kernels import pick_rank
 
 _K = 32                 # block rank when it divides ns; the kernels' largest
-_SMEM_BYTES = 232448    # dynamic shared memory one block may use (H100)
+_SMEM_BYTES = kernels.SMEM_BYTES  # dynamic shared memory of one block
 
 
 def _decide_smem(itemsize: int) -> int:
@@ -372,27 +372,16 @@ def block_rank(cfg: EngineConfig) -> int:
 
 def site_loop_smem(ns: int, itemsize: int, nfl: int = 1,
                    update: str = "delayed", k: int = _K) -> int:
-    """Shared memory one CTA of the site-loop kernel needs, in bytes
-    (csrc/fused_block.cu site_smem_bytes).  Delayed scheme (one cluster
-    of C CTAs per walker, each owning R <= 32 indices, Rp = R rounded up
-    to 4): one 8-byte mbarrier per slot (kp, k rounded up to 8); per
-    flavor, the CTA's own U and V and the group's panels of G (4 k Rp
-    elements), the pending U and V entries at the group's sites (2 k kp)
-    and the group's diagonal (k); the slice's gb, us and delta ((2 + nfl)
-    ns); as ints, the visit order and the accept flags (2 ns) and the own
-    slots (Rp).  Submatrix scheme (one CTA per walker): its flush operands
-    (2 k ns elements) and its k x k decision data."""
+    """Shared memory one CTA of the site-loop kernel needs, in bytes.
+    Delayed scheme: one cluster of CTAs per walker, the body it shares
+    with the per-slice engine's delayed slice (csrc/site_loop.cuh;
+    ops/kernels.py delayed_slice_smem).  Submatrix scheme (one CTA per
+    walker): its flush operands (2 k ns elements) and its k x k decision
+    data."""
     k = pick_rank(ns, k)
     if update == "submatrix":
         return 2 * k * ns * itemsize + _decide_smem(itemsize)
-    C = 1                      # CTAs per walker: at most 32 sites each
-    while C < 16 and -(-ns // C) > 32:
-        C *= 2
-    Rp = (-(-ns // C) + 3) // 4 * 4
-    kp = (k + 7) // 8 * 8
-    return (8 * kp
-            + itemsize * (nfl * (4 * k * Rp + 2 * k * kp + k) + (2 + nfl) * ns)
-            + 4 * (2 * ns + Rp))
+    return kernels.delayed_slice_smem(ns, itemsize, nfl, k, rmax=32)
 
 
 def supports_fused(model, cfg: EngineConfig | None = None) -> bool:

@@ -7,7 +7,8 @@ sequential Metropolis site loop, walker-batched, in three schemes:
   visit (``csrc/site_update.cu`` rank1_sites_kernel);
 - #3 ``metropolis_slice_update_batched``: delayed rank-k updates, the
   pending terms flushed as G += U^T V every k visits
-  (``csrc/site_update.cu`` delayed_sites_kernel and the rank-k flush);
+  (``csrc/site_update.cu`` delayed_slice_kernel: the whole slice in one
+  launch, one thread-block cluster per walker);
 - #5 ``metropolis_slice_update_submatrix``: the k decisions of a block on
   the k x k submatrix G[I, I] through a bordered Woodbury inverse W, then
   G += G[:, I] W (G[I, :] - E_I) (``csrc/submatrix_update.cu``);
@@ -15,8 +16,8 @@ sequential Metropolis site loop, walker-batched, in three schemes:
   2-flavor (det_power = 1) model: opposite couplings per flavor, the
   ratio R = gb r_up r_dn taken once per flavor, Metropolis on |R| with the
   sign of every accepted R < 0 multiplied into a per-walker sign
-  (``csrc/site_update.cu`` delayed_sites_kernel with two flavors; the
-  flush runs over 2 W matrices).  It also returns that sign.
+  (``csrc/site_update.cu`` delayed_slice_kernel with two flavors).  It also
+  returns that sign.
 
 Each wrapper takes per-walker coupling vectors (g, alpha) (W,), so one call
 can batch walkers of different models (parallel-tempering replicas), and
@@ -49,7 +50,8 @@ import torch
 from dqmc_tpu_torch import _cuda, hsfield
 
 KMAX = 32         # largest block rank the CUDA kernels take
-MAX_SITES = 1024  # largest ns of the delayed-sites and rank-1 kernels
+MAX_SITES = 1024  # largest ns of the delayed-slice and rank-1 kernels
+SMEM_BYTES = 232448  # dynamic shared memory one block may use (H100)
 
 
 def pick_rank(ns: int, k: int = 32) -> int:
@@ -163,6 +165,18 @@ def rank_k_flush_plain(G, U, V, cnt):
     G += U[..., :cnt, :].mT @ V[..., :cnt, :]
 
 
+def delayed_slice_plain(G, acc, order, gb, delta, us, k, sgn=None):
+    """#3 and #4: a whole slice as groups of k visits (the last one short
+    when k does not divide n), each followed by its flush."""
+    n = G.shape[-1]
+    U, V = (torch.empty(G.shape[:-2] + (k, n), dtype=G.dtype,
+                        device=G.device) for _ in range(2))
+    for v0 in range(0, n, k):
+        cnt = min(k, n - v0)
+        delayed_block_plain(G, U, V, acc, order, gb, delta, us, v0, cnt, sgn)
+        rank_k_flush_plain(G, U, V, cnt)
+
+
 def submatrix_decide_plain(G, Wm, acc, order, gb, delta, us, v0, cnt,
                            sgn=None):
     """#5: the cnt decisions of a block on G[I, I] through the bordered
@@ -213,8 +227,7 @@ def submatrix_prep_plain(G, Wm, Ut, M, order, v0, cnt):
 
 
 PLAIN = SimpleNamespace(rank1=rank1_slice_plain,
-                        delayed_block=delayed_block_plain,
-                        delayed_flush=rank_k_flush_plain,
+                        delayed_slice=delayed_slice_plain,
                         submatrix_decide=submatrix_decide_plain,
                         submatrix_prep=submatrix_prep_plain,
                         submatrix_flush=rank_k_flush_plain)
@@ -243,15 +256,14 @@ def rank1_slice_cuda(G, acc, order, gb, delta, us, sgn=None):
             P(delta), P(us), n, W)
 
 
-def delayed_block_cuda(G, U, V, acc, order, gb, delta, us, v0, cnt,
-                       sgn=None):
-    """#3 on G (W, n, n); #4 on G (W, 2, n, n) with ``sgn``."""
+def delayed_slice_cuda(G, acc, order, gb, delta, us, k, sgn=None):
+    """#3 on G (W, n, n); #4 on G (W, 2, n, n) with ``sgn``: the whole
+    slice in one launch."""
     W, n = G.shape[0], G.shape[-1]
     P = _cuda.ptr
-    name = "delayed_sites" if G.dim() == 3 else "delayed_sites_2f"
-    _launch(name, G, P(G), P(U), P(V), P(acc), P(sgn), P(order),
-            _stride(order), P(gb), P(delta), P(us), U.shape[-2] * n, n, v0,
-            cnt, W)
+    name = "delayed_slice" if G.dim() == 3 else "delayed_slice_2f"
+    _launch(name, G, P(G), P(acc), P(order), _stride(order), P(gb),
+            P(delta), P(us), P(sgn), n, k, W)
 
 
 def _flush_cuda(name):
@@ -282,8 +294,7 @@ def submatrix_prep_cuda(G, Wm, Ut, M, order, v0, cnt):
 
 
 KERNELS = SimpleNamespace(rank1=rank1_slice_cuda,
-                          delayed_block=delayed_block_cuda,
-                          delayed_flush=_flush_cuda("delayed_flush"),
+                          delayed_slice=delayed_slice_cuda,
                           submatrix_decide=submatrix_decide_cuda,
                           submatrix_prep=submatrix_prep_cuda,
                           submatrix_flush=_flush_cuda("submatrix_flush"))
@@ -293,6 +304,38 @@ def _roadmap(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} (ROADMAP: site-update kernels beyond the 32x32 lattice and "
         f"rank {KMAX})")
+
+
+def slice_cluster(ns: int, rmax: int = 64) -> tuple:
+    """(C, R, Rp) of a site-loop cluster for a slice of ns sites
+    (csrc/site_loop.cuh site_cluster): the fewest CTAs per walker, a power
+    of two up to 16, with R = ceil(ns / C) <= rmax sites each (rmax 64 for
+    the per-slice engine's delayed slice, 32 for the fused loop), Rp = R
+    rounded up to 4."""
+    C = 1
+    while C < 16 and -(-ns // C) > rmax:
+        C *= 2
+    R = -(-ns // C)
+    return C, R, (R + 3) // 4 * 4
+
+
+def delayed_slice_smem(ns: int, itemsize: int, nfl: int = 1,
+                       k: int = KMAX, rmax: int = 64) -> int:
+    """Shared memory one CTA of a site-loop cluster needs, in bytes: the
+    host's copy of csrc/site_loop.cuh site_smem_bytes (exported as
+    ``dqmc_site_smem_bytes``, which ``chip_smoke.py`` holds it against at
+    every shape), for deciding on a host with no CUDA build; rmax as
+    :func:`slice_cluster`.  One 8-byte mbarrier per slot (kp, k rounded up
+    to 8); per flavor, the CTA's own U and V and the group's panels of G
+    (4 k Rp elements), the pending U and V entries at the group's sites
+    (2 k kp) and the group's diagonal (k); the slice's gb, us and delta
+    ((2 + nfl) ns); as ints, the visit order and the accept flags (2 ns)
+    and the own slots (Rp)."""
+    Rp = slice_cluster(ns, rmax)[2]
+    kp = (k + 7) // 8 * 8
+    return (8 * kp
+            + itemsize * (nfl * (4 * k * Rp + 2 * k * kp + k) + (2 + nfl) * ns)
+            + 4 * (2 * ns + Rp))
 
 
 def check_cuda_slice(G, order, gb, delta, us, scheme: str, k: int) -> None:
@@ -333,16 +376,11 @@ def sites_update(G, order, gb, delta, us, scheme: str, k: int, prims,
     if scheme == "rank1":
         prims.rank1(G, acc, order, gb, delta, us, sgn)
         return acc > 0.5
+    if scheme == "delayed":
+        prims.delayed_slice(G, acc, order, gb, delta, us, k, sgn)
+        return acc > 0.5
     new = lambda *shape: torch.empty(G.shape[:-2] + shape, dtype=G.dtype,
                                      device=G.device)
-    if scheme == "delayed":
-        U, V = new(k, n), new(k, n)
-        for v0 in range(0, n, k):
-            cnt = min(k, n - v0)
-            prims.delayed_block(G, U, V, acc, order, gb, delta, us, v0, cnt,
-                                sgn)
-            prims.delayed_flush(G, U, V, cnt)
-        return acc > 0.5
     Wm, Ut, M = new(k, k), new(k, n), new(k, n)
     for v0 in range(0, n, k):
         cnt = min(k, n - v0)

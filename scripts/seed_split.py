@@ -39,6 +39,36 @@ redesign), given its ``fused_block.cu``:
 - ``times``: both, alternating (seed, checkout, checkout, seed) at
   ``chip_smoke.py``'s phase-10 shapes, per slice in CUDA events.
 
+The per-slice engine's delayed site loop (#3, #4) as groups of k visits,
+each one launch of the visit kernel and one of the rank-k flush (before
+its one-launch cluster redesign), given that commit's ``site_update.cu``
+and the ``rank_k_flush.cuh`` it includes, in one directory:
+
+    mkdir old && for f in site_update.cu rank_k_flush.cuh; do
+        git show <commit>:dqmc_tpu_torch/csrc/$f > old/$f; done
+    python3 scripts/seed_split.py delayed --source old/site_update.cu \\
+        [--parts split,bits,times,probes]
+
+- ``split``: device time (``chip_smoke.device_ms``: a CUDA graph of calls
+  between two events) of the seed's pieces at the engine's shapes: one
+  group's visits, one group's flush, ``Gw.baddbmm_(U.mT, V)`` for the same
+  flush, and the whole slice as the seed ran it (the twin loop of
+  ``ops/kernels.py delayed_slice_plain`` on the seed's pieces);
+- ``bits``: the seed's slice against the checkout's on the same inputs
+  (spread ratios, rejections and, with two flavors, sign flips): whether
+  G, the accept flags and the sign are equal bit for bit, one and two
+  flavors, both float types, at (4, 36) per walker (groups of 32 + 4),
+  (4, 36, 4), (32, 64), (16, 256) and (4, 1024); then the seed's rank-k
+  flush against the checkout's on random operands;
+- ``times``: both slices alternating (seed, checkout, checkout, seed) at
+  the shapes of ``split``, in device time, and a build of the checkout's
+  slice without its flush; then the seed's flush, the checkout's
+  (``submatrix_flush``) and ``baddbmm_`` alternating;
+- ``probes`` (not in the default parts): the checkout's slice at the
+  stretch shape against builds whose flush by owner copies V from its own
+  CTA, copies no V, moves no G, takes its FMA operands from registers, or
+  runs twice (wrong results; only the times are read).
+
 The stubs match the seed's text only, and the script stops on any other.
 Needs a CUDA card and nvcc; prints one line per measurement.
 """
@@ -54,7 +84,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-from chip_smoke import LOOP_CASES, cuda_ms  # noqa: E402
+from chip_smoke import LOOP_CASES, cuda_ms, device_ms  # noqa: E402
 
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared"]
@@ -379,14 +409,353 @@ def seed_takes(seed, inputs, nfl, dtype) -> bool:
     return True
 
 
+# (W, ns, k, flavors, float type, per-walker order) of the delayed mode's
+# timings: the stretch shape in both float types and with two flavors,
+# the df32 headline's float32 view, the repulsive preset, examples/basic
+# at JAX's rank (4) and per walker (groups of 32 + 4)
+DELAYED_CASES = ((4, 1024, 32, 1, "float32", False),
+                 (4, 1024, 32, 1, "float64", False),
+                 (4, 1024, 32, 2, "float32", False),
+                 (16, 256, 32, 1, "float32", False),
+                 (32, 64, 32, 2, "float32", False),
+                 (4, 36, 4, 1, "float32", False),
+                 (4, 36, 32, 1, "float32", True))
+DELAYED_BIT_SHAPES = ((4, 36, 32, True), (4, 36, 4, False),
+                      (32, 64, 32, False), (16, 256, 32, False),
+                      (4, 1024, 32, False))
+# the flush of the checkout's slice (either path), removed for the split
+# (the visits cannot be: a visit waits for its peers' entries)
+SLICE_STUBS = {"no_flush": ("    if constexpr (RMAX > 32) {",
+                            "    if (false) if constexpr (RMAX > 32) {")}
+# throwaway builds of the checkout's slice for ``probes``: each takes one
+# cost out of the flush by owner (or doubles it) and gives wrong G; only
+# their times are read
+_FLUSH_CALL = ("        flush_by_owner<T>(cluster, Gw + f * nn + (long long)a0 * n,\n"
+               "                          Uo + f * kR, Vo, f * kR, GC, GR, n, R, Rp, own,\n"
+               "                          cnt);\n")
+PROBE_STUBS = {
+    "V copied from the own CTA": [(
+        "cluster.map_shared_rank(Vo, (c + step) % C) + off);",
+        "cluster.map_shared_rank(Vo, c) + off);")],
+    "no V copy": [(
+        "      if (tid + i * nthreads < nv) pre[i] = src[tid + i * nthreads];\n",
+        "      (void)src;\n")],
+    "no G loads or stores": [(
+        "if (in && c0 < cols) v = ldcg_vec(g0 + (long long)x * n + y);",
+        "if (in && c0 < cols && n < 0) v = ldcg_vec(g0 + (long long)x * n + y);"), (
+        "              *reinterpret_cast<Vec<T>*>(gx + y) = e;",
+        "              if (e.v[0] == T(-12345.5))\n"
+        "                *reinterpret_cast<Vec<T>*>(gx + y) = e;")],
+    "FMA operands from registers": [(
+        "        const Vec<T> e =\n"
+        "            *reinterpret_cast<const Vec<T>*>(Uf + s * Rp + l0 + x);",
+        "        Vec<T> e;\n"
+        "        for (int q = 0; q < VW; ++q) e.v[q] = T(s + q + l0);"), (
+        "        const Vec<T> e =\n"
+        "            *reinterpret_cast<const Vec<T>*>(Vs + s * Rp + c0 + y);",
+        "        Vec<T> e;\n"
+        "        for (int q = 0; q < VW; ++q) e.v[q] = T(s - q + c0);")],
+    "the flush twice": [(
+        "      for (int f = 0; f < NFL; ++f)\n" + _FLUSH_CALL,
+        "      for (int f = 0; f < NFL; ++f) {\n" + _FLUSH_CALL
+        + "        __syncthreads();\n" + _FLUSH_CALL + "      }\n")],
+}
+_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+_SEED_SITES = [_VP] * 6 + [_LL] + [_VP] * 3 + [_LL] + [_I] * 4 + [_VP]
+_SEED_FLUSH = [_VP] * 3 + [_LL] + [_I] * 3 + [_VP]
+_SLICE = [_VP] * 3 + [_LL] + [_VP] * 4 + [_I] * 3 + [_VP]
+
+
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream():
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _check(err, what):
+    if err:
+        sys.exit(f"{what} failed: CUDA error {err}")
+
+
+def seed_pieces(lib, dtype):
+    """The seed's visit kernel and flush as the ``block`` and ``flush``
+    pieces of :func:`group_loop`."""
+    sfx = "_f64" if dtype == "float64" else "_f32"
+    sites = {1: _bind(lib, "dqmc_delayed_sites" + sfx, _SEED_SITES),
+             2: _bind(lib, "dqmc_delayed_sites_2f" + sfx, _SEED_SITES)}
+    flush_fn = _bind(lib, "dqmc_delayed_flush" + sfx, _SEED_FLUSH)
+
+    def block(G, U, V, acc, order, gb, delta, us, v0, cnt, sgn=None):
+        W, n = G.shape[0], G.shape[-1]
+        _check(sites[1 if G.dim() == 3 else 2](
+            _ptr(G), _ptr(U), _ptr(V), _ptr(acc), _ptr(sgn), _ptr(order),
+            0 if order.dim() == 1 else n, _ptr(gb), _ptr(delta), _ptr(us),
+            U.shape[-2] * n, n, v0, cnt, W, _stream()), "seed visits")
+
+    def flush(G, U, V, cnt):
+        n = G.shape[-1]
+        _check(flush_fn(_ptr(G), _ptr(U), _ptr(V), U.shape[-2] * n, n, cnt,
+                        G.numel() // (n * n), _stream()), "seed flush")
+    return block, flush
+
+
+def group_loop(block, flush):
+    """A slice as the seed ran it: groups of k visits (the last one short
+    when k does not divide n), each ``block`` and then ``flush``, called as
+    ``ops/kernels.py delayed_slice_plain`` is."""
+    import torch
+
+    def run(G, acc, order, gb, delta, us, k, sgn=None):
+        n = G.shape[-1]
+        U, V = (torch.empty(G.shape[:-2] + (k, n), dtype=G.dtype,
+                            device=G.device) for _ in range(2))
+        for v0 in range(0, n, k):
+            cnt = min(k, n - v0)
+            block(G, U, V, acc, order, gb, delta, us, v0, cnt, sgn)
+            flush(G, U, V, cnt)
+    return run
+
+
+def slice_entry(lib, dtype):
+    """A build's one-launch slice (``dqmc_delayed_slice``), called as
+    ``ops/kernels.py delayed_slice_cuda`` is, without counting."""
+    sfx = "_f64" if dtype == "float64" else "_f32"
+    fns = {1: _bind(lib, "dqmc_delayed_slice" + sfx, _SLICE),
+           2: _bind(lib, "dqmc_delayed_slice_2f" + sfx, _SLICE)}
+
+    def run(G, acc, order, gb, delta, us, k, sgn=None):
+        W, n = G.shape[0], G.shape[-1]
+        _check(fns[1 if G.dim() == 3 else 2](
+            _ptr(G), _ptr(acc), _ptr(order), 0 if order.dim() == 1 else n,
+            _ptr(gb), _ptr(delta), _ptr(us), _ptr(sgn), n, k, W, _stream()),
+            "slice")
+    return run
+
+
+def delayed_inputs(torch, W, ns, nfl, dtype, seed, timing, per_walker):
+    """One slice's inputs for the per-slice engine's kernels: G, the
+    per-visit gb, delta and us, the order ((ns,) or (W, ns), int32).
+    ``timing``: every ratio positive, as site_inputs.  Otherwise spread
+    ratios (noise of G scaled to keep it well conditioned at every ns)."""
+    G, gb, delta, us, order = site_inputs(torch, W, ns, nfl, dtype, seed,
+                                          timing)
+    if not timing:
+        eye = 0.5 * torch.eye(ns, device="cuda", dtype=G.dtype)
+        G = eye + (G - eye) * (6.0 / ns ** 0.5)
+    order = order[0]
+    if per_walker:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 1)
+        order = torch.argsort(torch.rand((W, ns), generator=g,
+                                         device="cuda"), dim=-1)
+    return G, gb, delta, us, order.to(torch.int32).contiguous()
+
+
+def run_slice(torch, fn, inputs, k):
+    """One slice by ``fn`` (called as ``delayed_slice_plain``) on a copy
+    of G; returns (G, accept flags, sign)."""
+    G0, gb, delta, us, order = inputs
+    W = gb.shape[0]
+    G = G0.clone()
+    acc = torch.zeros_like(gb)
+    sgn = torch.ones((W,), device="cuda", dtype=G.dtype)
+    fn(G, acc, order, gb, delta, us, k, sgn)
+    return G, acc, sgn
+
+
+def _tag(W, ns, k, nfl, dtype, pw):
+    return (f"({W}, {ns}, {k}) {dtype} flavors={nfl}"
+            + (" per-walker order" if pw else ""))
+
+
+def delayed_split(torch, seed, tmp=None) -> None:
+    for W, ns, k, nfl, dtype, pw in DELAYED_CASES:
+        inputs = delayed_inputs(torch, W, ns, nfl, dtype, 1, True, pw)
+        G0, gb, delta, us, order = inputs
+        block, flush = seed_pieces(seed, dtype)
+        G = G0.clone()
+        U, V = (torch.zeros(G.shape[:-2] + (k, ns), dtype=G.dtype,
+                            device="cuda") for _ in range(2))
+        acc = torch.zeros_like(gb)
+        sgn = torch.ones((W,), device="cuda", dtype=G.dtype)
+        blk = (acc, order, gb, delta, us, 0, k, sgn)
+        block(G, U, V, *blk)
+        Gf = G.view(-1, ns, ns)
+        Uf, Vf = U.view(-1, k, ns), V.view(-1, k, ns)
+        seed_slice = group_loop(block, flush)
+        groups = -(-ns // k)
+        t = {"visits": device_ms(lambda: block(G, U, V, *blk), 10),
+             "flush": device_ms(lambda: flush(G, U, V, k), 10),
+             "baddbmm": device_ms(lambda: Gf.baddbmm_(Uf.mT, Vf), 10),
+             "slice": device_ms(lambda: run_slice(torch, seed_slice, inputs,
+                                                  k), 3)}
+        print(f"delayed seed {_tag(W, ns, k, nfl, dtype, pw)}, device time: "
+              f"one group's visits {t['visits']:.4f} ms, its flush "
+              f"{t['flush']:.4f} ms, baddbmm_ {t['baddbmm']:.4f} ms; slice "
+              f"{t['slice']:.3f} ms ({groups} groups: visits x groups "
+              f"{t['visits'] * groups:.3f}, flushes x groups "
+              f"{t['flush'] * groups:.3f})", flush=True)
+
+
+def delayed_bits(torch, seed, tmp=None) -> None:
+    from dqmc_tpu_torch.ops import kernels as tk
+    for W, ns, k, pw in DELAYED_BIT_SHAPES:
+        for nfl in (1, 2):
+            for dtype in ("float64", "float32"):
+                inputs = delayed_inputs(torch, W, ns, nfl, dtype, 7 + ns,
+                                        False, pw)
+                block, flush = seed_pieces(seed, dtype)
+                a = run_slice(torch, group_loop(block, flush), inputs, k)
+                b = run_slice(torch, tk.KERNELS.delayed_slice, inputs, k)
+                torch.cuda.synchronize()
+                same = [torch.equal(x, y) for x, y in zip(a, b)]
+                gap = float((a[0] - b[0]).abs().max())
+                print(f"delayed bits {_tag(W, ns, k, nfl, dtype, pw)}: G "
+                      f"{'equal' if same[0] else f'DIFFERS (max {gap:.3e})'}"
+                      f" (max |G| {float(a[0].abs().max()):.3e}, finite "
+                      f"{bool(torch.isfinite(a[0]).all())}), flags "
+                      f"{'equal' if same[1] else 'DIFFER'} "
+                      f"({int(a[1].sum())} of {a[1].numel()} accepted), sign "
+                      f"{'equal' if same[2] else 'DIFFERS'} "
+                      f"({int((a[2] < 0).sum())} walkers flipped)",
+                      flush=True)
+    flush_bits(torch, seed)
+
+
+# (W, n, k, float type) of the flush's bit comparison: the engine's
+# shapes, and a ragged n (the scalar path)
+FLUSH_BIT_CASES = ((4, 1024, 32, "float32"), (4, 1024, 32, "float64"),
+                   (16, 256, 32, "float32"), (4, 36, 4, "float64"),
+                   (3, 25, 5, "float32"), (3, 25, 5, "float64"))
+
+
+def flush_bits(torch, seed) -> None:
+    """The seed's rank-k flush against the checkout's (``submatrix_flush``)
+    on the same random G, U and V: G equal bit for bit?"""
+    from dqmc_tpu_torch.ops import kernels as tk
+    for W, n, k, dtype in FLUSH_BIT_CASES:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(n + k)
+        G, U, V = (torch.randn(shape, generator=g, device="cuda",
+                               dtype=getattr(torch, dtype))
+                   for shape in ((W, n, n), (W, k, n), (W, k, n)))
+        a, b = G.clone(), G.clone()
+        seed_pieces(seed, dtype)[1](a, U, V, k)
+        tk.KERNELS.submatrix_flush(b, U, V, k)
+        torch.cuda.synchronize()
+        print(f"flush bits ({W}, {n}, {k}) {dtype}: G "
+              + ("equal" if torch.equal(a, b) else
+                 f"DIFFERS (max {float((a - b).abs().max()):.3e})"),
+              flush=True)
+
+
+def delayed_times(torch, seed, tmp) -> None:
+    from dqmc_tpu_torch.ops import kernels as tk
+    csrc = REPO / "dqmc_tpu_torch" / "csrc"
+    stub = tmp / "stub"
+    stub.mkdir()
+    (stub / "site_loop.cuh").write_text(
+        stubbed(csrc / "site_loop.cuh", SLICE_STUBS)["no_flush"])
+    noflush = nvcc_all({"noflush": (csrc / "site_update.cu").read_text()},
+                       tmp, stub / "site_update.cu")["noflush"]
+    for W, ns, k, nfl, dtype, pw in DELAYED_CASES:
+        inputs = delayed_inputs(torch, W, ns, nfl, dtype, 1, True, pw)
+        block, flush = seed_pieces(seed, dtype)
+        fns = {"seed": group_loop(block, flush),
+               "checkout": tk.KERNELS.delayed_slice}
+        t = {"seed": [], "checkout": []}
+        for name in ("seed", "checkout", "checkout", "seed"):
+            t[name].append(device_ms(lambda: run_slice(
+                torch, fns[name], inputs, k), 3))
+        bare = device_ms(lambda: run_slice(
+            torch, slice_entry(noflush, dtype), inputs, k), 3)
+        print(f"delayed times {_tag(W, ns, k, nfl, dtype, pw)}, device time "
+              f"per slice: seed {t['seed'][0]:.4f} / {t['seed'][1]:.4f} ms, "
+              f"checkout {t['checkout'][0]:.4f} / {t['checkout'][1]:.4f} ms,"
+              f" checkout without its flush {bare:.4f} ms", flush=True)
+    for W, ns, k, dtype in ((4, 1024, 32, "float64"),
+                            (4, 1024, 32, "float32"),
+                            (16, 256, 32, "float32")):
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3)
+        G = torch.randn((W, ns, ns), generator=g, device="cuda", dtype=dt)
+        U, V = (torch.randn((W, k, ns), generator=g, device="cuda",
+                            dtype=dt) for _ in range(2))
+        _, seed_flush = seed_pieces(seed, dtype)
+        fns = {"seed": lambda: seed_flush(G, U, V, k),
+               "checkout": lambda: tk.KERNELS.submatrix_flush(G, U, V, k),
+               "baddbmm_": lambda: G.baddbmm_(U.mT, V)}
+        t = {name: [] for name in fns}
+        for name in ("seed", "checkout", "baddbmm_", "baddbmm_", "checkout",
+                     "seed"):
+            t[name].append(device_ms(fns[name], 30))
+        print(f"flush times ({W}, {ns}, {k}) {dtype}, device time per "
+              f"call: " + ", ".join(
+                  f"{name} {a:.5f} / {b:.5f} ms" for name, (a, b) in
+                  t.items()), flush=True)
+
+
+def delayed_probes(torch, seed, tmp) -> None:
+    """The checkout's slice at the large shapes of DELAYED_CASES against
+    builds with one of PROBE_STUBS applied (one nvcc each, in parallel)."""
+    csrc = REPO / "dqmc_tpu_torch" / "csrc"
+    hdr = (csrc / "site_loop.cuh").read_text()
+    src = (csrc / "site_update.cu").read_text()
+    jobs = {}  # name -> directory of the stubbed build
+    for i, (name, stubs) in enumerate(PROBE_STUBS.items()):
+        text = hdr
+        for old, new in stubs:
+            if text.count(old) != 1:
+                sys.exit(f"probe {name!r}: stub matches {text.count(old)} "
+                         f"times")
+            text = text.replace(old, new)
+        d = tmp / f"probe{i}"
+        d.mkdir()
+        (d / "site_loop.cuh").write_text(text)
+        (d / "site_update.cu").write_text(src)
+        jobs[name] = d
+    procs = {name: subprocess.Popen(
+        NVCC + [f"-I{d}", "-o", str(d / "lib.so"), str(d / "site_update.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, d in jobs.items()}
+    outs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    for name, proc in procs.items():
+        if proc.returncode:
+            sys.exit(f"nvcc failed for probe {name!r}\n{outs[name]}")
+    libs = {name: ctypes.CDLL(str(d / "lib.so")) for name, d in jobs.items()}
+    from dqmc_tpu_torch import _cuda
+    builds = {"checkout": _cuda.lib(), **libs}
+    for W, ns, k, nfl, dtype, pw in DELAYED_CASES[:3]:
+        inputs = delayed_inputs(torch, W, ns, nfl, dtype, 1, True, pw)
+        t = {name: device_ms(lambda: run_slice(
+            torch, slice_entry(lib, dtype), inputs, k), 3)
+            for name, lib in builds.items()}
+        print(f"delayed probes {_tag(W, ns, k, nfl, dtype, pw)}, device "
+              f"time per slice: " + ", ".join(
+                  f"{name} {ms:.4f} ms" for name, ms in t.items()),
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("k1", "sites"))
+    ap.add_argument("kernel", choices=("k1", "sites", "delayed"))
     ap.add_argument("--source", required=True, type=Path,
-                    help="the seed's cgs2_qr.cu (k1) or fused_block.cu "
-                    "(sites)")
+                    help="the seed's cgs2_qr.cu (k1), fused_block.cu "
+                    "(sites) or site_update.cu (delayed)")
     ap.add_argument("--parts", default="split,barriers,bits,times",
-                    help="sites: which of split, barriers, bits, times")
+                    help="sites: which of split, barriers, bits, times; "
+                    "delayed: which of split, bits, times, probes")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -395,6 +764,17 @@ def main() -> None:
     if opts.kernel == "k1":
         return k1_split(opts)
     parts = opts.parts.split(",")
+    if opts.kernel == "delayed":
+        with tempfile.TemporaryDirectory() as tmp:
+            seed = nvcc_all({"seed": opts.source.read_text()}, Path(tmp),
+                            opts.source)["seed"]
+            for part, run in (("split", delayed_split),
+                              ("bits", delayed_bits),
+                              ("times", delayed_times),
+                              ("probes", delayed_probes)):
+                if part in parts:
+                    run(torch, seed, Path(tmp))
+        return
     with tempfile.TemporaryDirectory() as tmp:
         if "split" in parts:
             site_split(torch, opts, Path(tmp))

@@ -108,7 +108,7 @@ def test_kernel_wrappers_check_their_inputs(gen):
 SITE_SCHEMES = {
     "rank1": ("metropolis_slice_update", None, ("rank1_sites",)),
     "delayed": ("metropolis_slice_update_batched", "k_delay",
-                ("delayed_sites", "delayed_flush")),
+                ("delayed_slice",)),
     "submatrix": ("metropolis_slice_update_submatrix", "k_sub",
                   ("submatrix_decide", "submatrix_prep", "submatrix_flush")),
 }
@@ -227,7 +227,7 @@ def test_submatrix_block_kernel_matches_twin_f64(gen, forward, g_tol, k):
 def test_two_flavor_site_update_kernel_matches_twin_f64(gen, shared):
     """#4 against its twin, one slice, doped couplings on a fake G so that
     signs flip: the same decisions and signs.  At ns = 36 with a short last
-    block (k = 8, two columns per thread), G to 1e-12 of its largest
+    block (k = 8), G to 1e-12 of its largest
     entry; at the repulsive preset's shape (W = 32, ns = 64, k = 32: one
     column per thread, two full blocks) to 1e-9: 64 visits on the fake G
     drive |G| to O(1e3) through near-singular accepted moves, and the card
@@ -251,11 +251,9 @@ def test_two_flavor_site_update_kernel_matches_twin_f64(gen, shared):
         kw = dict(k_delay=k, exact_rank=True)
         before = dict(_cuda.LAUNCHES)
         Gk, fk, ak, sk = tk.metropolis_slice_update_batched_2f(*args, **kw)
-        blocks = -(-n // k)
-        assert _cuda.LAUNCHES["delayed_sites_2f"] == \
-            before["delayed_sites_2f"] + blocks
-        assert _cuda.LAUNCHES["delayed_flush"] == \
-            before["delayed_flush"] + blocks
+        # the whole slice, every block and its flush, in one launch
+        assert _cuda.LAUNCHES["delayed_slice_2f"] == \
+            before["delayed_slice_2f"] + 1
         Gp, fp, ap, sp = tk.metropolis_slice_update_batched_2f(
             *args, plain=True, **kw)
         assert torch.equal(fk, fp) and torch.equal(ak, ap)

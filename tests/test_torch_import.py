@@ -191,15 +191,15 @@ def test_kernel_sources_are_listed():
                      "site_update.cu", "submatrix_update.cu"]
     assert _cuda.library_path().parent == _cuda.BUILD_DIR
     assert sorted(p.name for p in _cuda.CSRC.glob("*.cuh")) == [
-        "rank_k_flush.cuh", "submatrix_decide.cuh"]
+        "rank_k_flush.cuh", "site_loop.cuh", "submatrix_decide.cuh"]
     assert set(_cuda.LAUNCHES) == {
         "cgs2_qr", "fused_wrap", "fused_sites", "fused_sites_2f",
-        "fused_sites_sub", "delayed_sites", "delayed_sites_2f",
-        "delayed_flush", "rank1_sites", "submatrix_decide", "submatrix_prep",
+        "fused_sites_sub", "delayed_slice", "delayed_slice_2f",
+        "rank1_sites", "submatrix_decide", "submatrix_prep",
         "submatrix_flush", "df_qr_panel", "tf_qr_panel"}
     # every C entry point has both float types' signatures declared
     assert {"dqmc_site_loop_2f", "dqmc_site_loop_sub",
-            "dqmc_delayed_sites_2f"} <= set(_cuda._SIGNATURES)
+            "dqmc_delayed_slice_2f"} <= set(_cuda._SIGNATURES)
     # the multiword panels are float32 only and build without contraction
     assert set(_cuda._FLOAT32_SIGNATURES) == {"dqmc_df_qr_panel",
                                               "dqmc_tf_qr_panel"}

@@ -224,6 +224,37 @@ def test_cuda_slice_check_refuses_shapes_beyond_the_kernels(scheme, n, k):
         tk.check_cuda_slice(G, order, v, v, v, scheme, k)
 
 
+def test_delayed_slice_budget_takes_every_kernel_shape():
+    """The delayed-slice kernel's cluster and shared memory (the Python
+    mirror of csrc/site_loop.cuh) fit every shape the per-slice engine
+    gives it: ns <= 1024, k <= 32, one or two flavors, float32 or float64.
+    A cluster is the fewest CTAs (at most 16) with at most 64 sites each,
+    and a CTA takes at most one block's 232,448 bytes of dynamic shared
+    memory; the largest shape, float64 with two flavors at ns = 1024,
+    needs 205,824."""
+    largest = 0
+    for ns in range(1, tk.MAX_SITES + 1):
+        C, R, Rp = tk.slice_cluster(ns)
+        assert C in (1, 2, 4, 8, 16) and C * R >= ns > (C - 1) * R
+        assert R <= 64 and (C == 1 or -(-ns // (C // 2)) > 64)
+        assert Rp % 4 == 0 and R <= Rp < R + 4
+        for k in range(1, tk.KMAX + 1):
+            for nfl in (1, 2):
+                for itemsize in (4, 8):
+                    need = tk.delayed_slice_smem(ns, itemsize, nfl, k)
+                    assert need <= tk.SMEM_BYTES
+                    largest = max(largest, need)
+    assert largest == tk.delayed_slice_smem(1024, 8, 2, 32) == 205824
+    # the wrapper's check takes the largest shape (and then refuses the
+    # CPU tensors)
+    G = torch.zeros((1, 2, 1024, 1024), dtype=torch.float64)
+    v = torch.zeros((1, 1024), dtype=torch.float64)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tk.check_cuda_slice(G, torch.arange(1024, dtype=torch.int32), v,
+                            torch.zeros((1, 2, 1024), dtype=torch.float64),
+                            v, "delayed", 32)
+
+
 @pytest.mark.parametrize("scheme", ["rank1", "submatrix"])
 def test_cuda_slice_check_refuses_two_flavors_without_a_kernel(scheme):
     """Only the delayed scheme has a 2-flavor kernel (#4)."""
