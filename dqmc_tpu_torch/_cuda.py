@@ -41,8 +41,8 @@ SOURCE_FLAGS = {"mw_qr_panel.cu": ("--fmad=false",)}
 LAUNCHES = {"cgs2_qr": 0, "fused_wrap": 0, "fused_sites": 0,
             "fused_sites_2f": 0, "fused_sites_sub": 0,
             "delayed_slice": 0, "delayed_slice_2f": 0,
-            "rank1_sites": 0, "submatrix_decide": 0, "submatrix_prep": 0,
-            "submatrix_flush": 0, "df_qr_panel": 0, "tf_qr_panel": 0}
+            "rank1_sites": 0, "submatrix_group": 0, "submatrix_flush": 0,
+            "df_qr_panel": 0, "tf_qr_panel": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SITE_LOOP = (_P, _P, _LL, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P)
@@ -56,10 +56,10 @@ _SIGNATURES = {  # each has a _f32 and a _f64 entry point
     "dqmc_delayed_slice": _DELAYED_SLICE,
     "dqmc_delayed_slice_2f": _DELAYED_SLICE,
     "dqmc_rank1_sites": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _P),
-    "dqmc_submatrix_decide": (_P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _P),
-    "dqmc_submatrix_prep": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                            _P),
+    "dqmc_submatrix_slice": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _P),
+    "dqmc_submatrix_group": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _P),
     "dqmc_submatrix_flush": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 _FLOAT32_SIGNATURES = {  # float32-only entry points, no suffix
@@ -155,6 +155,9 @@ def lib() -> ctypes.CDLL:
             handle.dqmc_site_cluster.argtypes = [_I, _I]
             handle.dqmc_site_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
             handle.dqmc_site_smem_bytes.restype = _LL
+            handle.dqmc_sub_smem_bytes.argtypes = [_I, _I, _I]
+            handle.dqmc_sub_smem_bytes.restype = _LL
+            handle.dqmc_submatrix_group_ctas.argtypes = [_I]
             handle.dqmc_error_string.argtypes = [ctypes.c_int]
             handle.dqmc_error_string.restype = ctypes.c_char_p
             _lib = handle

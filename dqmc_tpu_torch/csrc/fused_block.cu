@@ -24,9 +24,11 @@
 //                      and the accept mask, and every k sites flushes
 //                      G += U^T V.  Two flavors: the same cluster keeps
 //                      both (site_loop_2f_kernel).
-//   site_loop_sub_kernel the same slice by the submatrix scheme: per group
-//                      of k sites, the k decisions on k x k data (one warp),
-//                      then G += G[:, I] W (G[I, :] - E_I) in the CTA.
+//   site_loop_sub_kernel the same slice by the submatrix scheme, on the
+//                      same clusters: per group of k sites, the k decisions
+//                      on k x k data (warp 0 of every CTA, on the same
+//                      bits), then G += G[:, I] W (G[I, :] - E_I) over the
+//                      cluster (submatrix_decide.cuh).
 //
 // What bounds it on an H100: the site loop is a chain of ns dependent
 // visits per slice, and every k visits a rank-k flush streams all of G
@@ -66,10 +68,15 @@
 // fits (ns <= 512, k <= 32, one or two flavors, f32 or f64: at most 119,680
 // bytes of shared memory).
 // Plain FP32/FP64 FMA, no tensor cores; no atomics, so a second call gives
-// the same bits, and the same bits as the one-CTA loop it replaced.  The
-// submatrix loop keeps one CTA per walker: its flush operands (2 k ns
-// elements) beside 9 KB (f32) of decision data, its in-CTA flush as the
-// first design of the delayed loop had it.
+// the same bits, and the same bits as the one-CTA loop it replaced.
+// The submatrix loop had kept one CTA per walker (its flush operands, 2 k
+// ns elements, in that CTA's shared memory: no float64 at ns >= 448; its
+// flush one thread per column in the CTA).  It now runs on the same
+// clusters: each CTA gathers G[I, I] and decides on the same bits while
+// its other warps load its share of the flush operands, forms M at its own
+// columns, and flushes its own rows by column as the delayed loop does,
+// with M read from its owners' shared memory; every ns <= 512 fits in both
+// float types (at most 69,120 bytes of shared memory).
 
 #include <cuda_runtime.h>
 
@@ -81,7 +88,6 @@ namespace {
 using dqmc::SITE_THREADS;  // the delayed loop's CTA
 using dqmc::Vec;
 constexpr int KMAX = dqmc::SITE_KMAX;
-constexpr int SITE_THREADS_MAX = 512;  // one thread per column, ns <= 512
 
 // C = diag(r) A diag(m) B diag(c) for a batch, one BM x BN output tile per
 // CTA and a TM x TN register tile per thread, BK deep per shared tile.
@@ -297,70 +303,15 @@ site_loop_2f_kernel(const dqmc::SiteLoopArgs<T> args) {
   dqmc::site_loop_body<T, 2, 32>(args);
 }
 
-// One slice of the submatrix scheme (one stored flavor); blockIdx.x =
-// walker, one thread per column j.  Per group of k visits: warp 0 gathers
-// G[I, I] and runs the k bordered-inverse decisions (submatrix_decide.cuh;
-// a rejected candidate leaves W's row and column exactly zero); every thread
-// then copies its column of the flush operands out of the block-base G,
-// Ut[p][j] = G[j][I_p] and M[p][j] = sum_q W[p][q] (G[I_q][j] - [I_q == j]),
-// into shared memory; then the composite flush G += Ut^T M runs in the CTA,
-// column by column as in the delayed loop.  gb and delta are site-indexed.
+// One slice of the submatrix scheme (one stored flavor) on one cluster per
+// walker, R <= 32 indices per CTA: submatrix_decide.cuh's body, gb and
+// delta indexed by site.
+// Two CTAs per SM in float32; one in float64, whose decision warp keeps W
+// in 128 registers.
 template <typename T>
-__global__ void __launch_bounds__(SITE_THREADS_MAX)
-site_loop_sub_kernel(T* __restrict__ G, T* __restrict__ mask,
-                     long long s_mask, const int* __restrict__ order,
-                     const T* __restrict__ gb, const T* __restrict__ delta,
-                     const T* __restrict__ us, long long s_stream, int n,
-                     int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ut = reinterpret_cast<T*>(smem_raw);  // k x n: G[:, I]^T
-  T* M = Ut + (long long)k * n;            // k x n: W (G[I, :] - E_I)
-  __shared__ dqmc::DecideSmem<T> sm;
-
-  const int w = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool own = j < n;
-  T* Gw = G + (long long)w * n * n;
-  mask += w * s_mask;
-  gb += w * s_stream;
-  delta += w * s_stream;
-  us += w * s_stream;
-
-  for (int v0 = 0; v0 < n; v0 += k) {
-    if (j < 32)
-      dqmc::submatrix_decide_warp(sm, Gw, n, order, v0, k, gb, delta, us,
-                                  mask, true, j);
-    __syncthreads();
-    T v[KMAX];
-    if (own) {
-#pragma unroll
-      for (int q = 0; q < KMAX; ++q)
-        v[q] = q < k ? Gw[(long long)sm.I[q] * n + j] -
-                           (sm.I[q] == j ? T(1) : T(0))
-                     : T(0);
-      for (int p = 0; p < k; ++p) {
-        T m = T(0);
-#pragma unroll
-        for (int q = 0; q < KMAX; ++q)
-          if (q < k) m += sm.Wm[p][q] * v[q];
-        M[p * n + j] = m;
-        Ut[p * n + j] = Gw[(long long)j * n + sm.I[p]];
-      }
-    }
-    __syncthreads();
-    if (own) {
-#pragma unroll
-      for (int s = 0; s < KMAX; ++s) v[s] = s < k ? M[s * n + j] : T(0);
-      for (int a = 0; a < n; ++a) {
-        T acc = T(0);
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s)
-          if (s < k) acc += Ut[s * n + a] * v[s];
-        Gw[(long long)a * n + j] += acc;
-      }
-    }
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(SITE_THREADS, sizeof(T) == 4 ? 2 : 1)
+site_loop_sub_kernel(const dqmc::SiteLoopArgs<T> args) {
+  dqmc::submatrix_slice_body<T>(args);
 }
 
 template <typename T, int BM, int BN, int TM, int TN, int BK>
@@ -421,7 +372,7 @@ int launch_sites(T* G, T* mask, long long s_mask, const int* order,
                                    us, s_stream, sgn, n,     k,   false};
   return dqmc::launch_site_loop<T>(
       NFL == 1 ? site_loop_kernel<T> : site_loop_2f_kernel<T>, cache, args,
-      NFL, 32, batch, stream);
+      dqmc::site_smem_bytes<T>(n, k, NFL, 32), 32, batch, stream);
 }
 
 template <typename T>
@@ -429,17 +380,15 @@ int launch_sites_sub(T* G, T* mask, long long s_mask, const int* order,
                      const T* gb, const T* delta, const T* us,
                      long long s_stream, int n, int k, int batch,
                      void* stream) {
-  if (n <= 0 || n > 512 || k <= 0 || k > KMAX || n % k != 0 || batch <= 0)
+  if (n <= 0 || n > 512 || k <= 0 || k > KMAX || n % k != 0 || batch <= 0 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * 2 * (size_t)k * n;
-  cudaError_t err = cudaFuncSetAttribute(
-      site_loop_sub_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (n + 31) / 32 * 32;
-  site_loop_sub_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
-      G, mask, s_mask, order, gb, delta, us, s_stream, n, k);
-  return (int)cudaGetLastError();
+  static dqmc::SiteLaunchCache cache;
+  const dqmc::SiteLoopArgs<T> args{G,  mask,     s_mask,  order, 0, gb, delta,
+                                   us, s_stream, nullptr, n,     k, false};
+  return dqmc::launch_site_loop<T>(site_loop_sub_kernel<T>, cache, args,
+                                   dqmc::sub_smem_bytes<T>(n, k),
+                                   dqmc::SUB_RMAX, batch, stream);
 }
 
 }  // namespace
@@ -486,3 +435,11 @@ extern "C" int dqmc_wrap_gemm_f64(double* C, const double* A, long long sA,
 
 DQMC_SITE_LOOP_API(float, _f32)
 DQMC_SITE_LOOP_API(double, _f64)
+
+// The dynamic shared memory of one CTA of the submatrix site loop's
+// cluster (R <= 32) at n sites, rank k, itemsize 4 or 8 (ops/kernels.py
+// submatrix_slice_smem mirrors it for the host).
+extern "C" long long dqmc_sub_smem_bytes(int n, int k, int itemsize) {
+  return itemsize == 8 ? dqmc::sub_smem_bytes<double>(n, k)
+                       : dqmc::sub_smem_bytes<float>(n, k);
+}

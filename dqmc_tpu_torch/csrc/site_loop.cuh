@@ -344,6 +344,95 @@ __device__ __forceinline__ void flush_by_owner(
   }
 }
 
+// The flush of one flavor in the fused loop's clusters (R <= 32), by
+// column: G[a0 + l][j] += sum_s Uf[s][l] V[s][j] for the CTA's own rows
+// l < own, each thread one column j of all own rows at a time, V[s][j]
+// read from the shared memory of j's owner (at Vo + off there, its R
+// columns Rp apart); G's rows a0 ... (Gf) in global memory.  The sum runs
+// from 0 in s order and is then added to G.
+template <typename T, int RMAX>
+__device__ __forceinline__ void flush_by_column(
+    cg::cluster_group& cluster, T* Gf, const T* Uf, const T* Vo, int off,
+    int n, int R, int Rp, int own, int cnt) {
+  constexpr int VW = 16 / sizeof(T);
+  constexpr int GB = sizeof(T) == 4 ? 32 : 16;  // G loads in flight
+  constexpr int KMAX = SITE_KMAX;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  // (one pass: own <= 32; a loop, with which ptxas keeps the column
+  // loop free of spills)
+#pragma unroll 1
+  for (int h = 0; h < min(own, RMAX); h += 32) {
+    for (int j = tid; j < n; j += nthreads) {
+      const int r = j / R;
+      const T* Vr =
+          cluster.map_shared_rank(Vo, r) + off + (j - r * R);
+      // float32: the column of V in registers first, its loads in
+      // flight together (float64 needs those registers for the sums)
+      T vv[KMAX];
+      if (sizeof(T) == 4) {
+#pragma unroll
+        for (int s0 = 0; s0 < KMAX; s0 += 8)
+          if (s0 < cnt) {
+#pragma unroll
+            for (int s = s0; s < s0 + 8; ++s)
+              vv[s] = Vr[min(s, cnt - 1) * Rp];
+          }
+      }
+      T acc[32];
+#pragma unroll
+      for (int l = 0; l < 32; ++l) acc[l] = T(0);
+      if (cnt == KMAX && Rp == RMAX) {
+        // full groups and rows (ns = 32 C): no step to skip
+#pragma unroll
+        for (int s = 0; s < KMAX; ++s) {
+          const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
+#pragma unroll
+          for (int l = 0; l < 32; l += VW) {
+            const Vec<T> u = *reinterpret_cast<const Vec<T>*>(
+                Uf + s * RMAX + h + l);
+#pragma unroll
+            for (int q = 0; q < VW; ++q)
+              acc[l + q] = fma(u.v[q], v, acc[l + q]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < KMAX; ++s) {
+          if (s < cnt) {
+            const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
+#pragma unroll
+            for (int l = 0; l < 32; l += VW) {
+              if (h + l < Rp) {
+                const Vec<T> u = *reinterpret_cast<const Vec<T>*>(
+                    Uf + s * Rp + h + l);
+#pragma unroll
+                for (int q = 0; q < VW; ++q)
+                  acc[l + q] = fma(u.v[q], v, acc[l + q]);
+              }
+            }
+          }
+        }
+      }
+      // G's entries in blocks of GB loads in flight: a store to G
+      // between two loads would make each wait for the one before
+      // (the compiler cannot tell the rows apart)
+#pragma unroll
+      for (int l0 = 0; l0 < 32; l0 += GB) {
+        T g[GB];
+#pragma unroll
+        for (int l = 0; l < GB; ++l)
+          g[l] = h + l0 + l < own
+                     ? __ldcg(Gf + (long long)(h + l0 + l) * n + j)
+                     : T(0);
+#pragma unroll
+        for (int l = 0; l < GB; ++l)
+          if (h + l0 + l < own)
+            Gf[(long long)(h + l0 + l) * n + j] = g[l] + acc[l0 + l];
+      }
+    }
+  }
+}
+
 // One slice on the cluster of walker blockIdx.y (blockIdx.x = the CTA's
 // rank c in the cluster).  CTA c owns the indices a0 = c R ... a0 + own - 1:
 // their rows of U (U[s][a] = prefac_s col_s[a]) and columns of V
@@ -381,7 +470,6 @@ template <typename T, int NFL, int RMAX, bool SPLIT_R = false>
 __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   constexpr int VW = 16 / sizeof(T);
   constexpr int BS = sizeof(T) == 4 ? 8 : 4;  // a block of the visit dots
-  constexpr int GB = sizeof(T) == 4 ? 32 : 16;  // G loads in flight
   constexpr int KMAX = SITE_KMAX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -565,91 +653,15 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
     // 3. G[a][j] += sum_s U[s][a] V[s][j] over the own rows a: by owner
     // when RMAX = 64 (GC and GR, free until the next group, hold V's
     // blocks), else by column, each thread one column of all own rows
-    if constexpr (RMAX > 32) {
 #pragma unroll
-      for (int f = 0; f < NFL; ++f)
-        flush_by_owner<T>(cluster, Gw + f * nn + (long long)a0 * n,
-                          Uo + f * kR, Vo, f * kR, GC, GR, n, R, Rp, own,
-                          cnt);
-    } else {
-#pragma unroll
-      for (int f = 0; f < NFL; ++f) {
-        const T* Uf = Uo + f * kR;
-        T* Gf = Gw + f * nn + (long long)a0 * n;
-        // (one pass: own <= 32; a loop, with which ptxas keeps the column
-        // loop free of spills)
-#pragma unroll 1
-        for (int h = 0; h < min(own, RMAX); h += 32) {
-          for (int j = tid; j < n; j += nthreads) {
-            const int r = j / R;
-            const T* Vr =
-                cluster.map_shared_rank(Vo, r) + f * kR + (j - r * R);
-            // float32: the column of V in registers first, its loads in
-            // flight together (float64 needs those registers for the sums)
-            T vv[KMAX];
-            if (sizeof(T) == 4) {
-#pragma unroll
-              for (int s0 = 0; s0 < KMAX; s0 += 8)
-                if (s0 < cnt) {
-#pragma unroll
-                  for (int s = s0; s < s0 + 8; ++s)
-                    vv[s] = Vr[min(s, cnt - 1) * Rp];
-                }
-            }
-            T acc[32];
-#pragma unroll
-            for (int l = 0; l < 32; ++l) acc[l] = T(0);
-            if (cnt == KMAX && Rp == RMAX) {
-              // full groups and rows (ns = 32 C): no step to skip
-#pragma unroll
-              for (int s = 0; s < KMAX; ++s) {
-                const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
-#pragma unroll
-                for (int l = 0; l < 32; l += VW) {
-                  const Vec<T> u = *reinterpret_cast<const Vec<T>*>(
-                      Uf + s * RMAX + h + l);
-#pragma unroll
-                  for (int q = 0; q < VW; ++q)
-                    acc[l + q] = fma(u.v[q], v, acc[l + q]);
-                }
-              }
-            } else {
-#pragma unroll
-              for (int s = 0; s < KMAX; ++s) {
-                if (s < cnt) {
-                  const T v = sizeof(T) == 4 ? vv[s] : Vr[s * Rp];
-#pragma unroll
-                  for (int l = 0; l < 32; l += VW) {
-                    if (h + l < Rp) {
-                      const Vec<T> u = *reinterpret_cast<const Vec<T>*>(
-                          Uf + s * Rp + h + l);
-#pragma unroll
-                      for (int q = 0; q < VW; ++q)
-                        acc[l + q] = fma(u.v[q], v, acc[l + q]);
-                    }
-                  }
-                }
-              }
-            }
-            // G's entries in blocks of GB loads in flight: a store to G
-            // between two loads would make each wait for the one before
-            // (the compiler cannot tell the rows apart)
-#pragma unroll
-            for (int l0 = 0; l0 < 32; l0 += GB) {
-              T g[GB];
-#pragma unroll
-              for (int l = 0; l < GB; ++l)
-                g[l] = h + l0 + l < own
-                           ? __ldcg(Gf + (long long)(h + l0 + l) * n + j)
-                           : T(0);
-#pragma unroll
-              for (int l = 0; l < GB; ++l)
-                if (h + l0 + l < own)
-                  Gf[(long long)(h + l0 + l) * n + j] = g[l] + acc[l0 + l];
-            }
-          }
-        }
-      }
+    for (int f = 0; f < NFL; ++f) {
+      T* Gf = Gw + f * nn + (long long)a0 * n;
+      if constexpr (RMAX > 32)
+        flush_by_owner<T>(cluster, Gf, Uo + f * kR, Vo, f * kR, GC, GR, n, R,
+                          Rp, own, cnt);
+      else
+        flush_by_column<T, RMAX>(cluster, Gf, Uo + f * kR, Vo, f * kR, n, R,
+                                 Rp, own, cnt);
     }
     // (the barrier's release and acquire at cluster scope order the
     // flush's writes of G before the next group's panel loads)
@@ -674,8 +686,9 @@ struct SiteLaunchCache {
   int dev = -1, smem = -1, n = -1, k = -1, clusters = 0;
 };
 
-// Launch `kernel` (a site_loop_body instantiation taking SiteLoopArgs<T>,
-// R <= rmax) for `batch` walkers: one cluster of site_cluster(n, rmax).C
+// Launch `kernel` (a site_loop_body or submatrix_slice_body instantiation
+// taking SiteLoopArgs<T>, R <= rmax, `smem` bytes of dynamic shared memory
+// per CTA) for `batch` walkers: one cluster of site_cluster(n, rmax).C
 // CTAs each.  Raises
 // the kernel's dynamic shared memory limit to what the shape needs and
 // returns cudaErrorLaunchOutOfResources, launching nothing, when the
@@ -684,10 +697,9 @@ struct SiteLaunchCache {
 // repeated launch (and a launch under CUDA graph capture) only launches.
 template <typename T, typename Kernel>
 int launch_site_loop(Kernel kernel, SiteLaunchCache& cache,
-                     const SiteLoopArgs<T>& args, int nfl, int rmax,
+                     const SiteLoopArgs<T>& args, size_t smem, int rmax,
                      int batch, void* stream) {
   const SiteCluster cl = site_cluster(args.n, rmax);
-  const size_t smem = site_smem_bytes<T>(args.n, args.k, nfl, rmax);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;

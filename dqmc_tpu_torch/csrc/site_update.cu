@@ -132,8 +132,9 @@ int launch_delayed_slice(T* G, T* acc, const int* order, long long s_order,
   const dqmc::SiteLoopArgs<T> args{G,  acc, n,   order, s_order, gb, delta,
                                    us, n,   sgn, n,     k,       true};
   static dqmc::SiteLaunchCache cache;
-  return dqmc::launch_site_loop<T>(delayed_slice_kernel<T, NFL>, cache, args,
-                                   NFL, 64, batch, stream);
+  return dqmc::launch_site_loop<T>(
+      delayed_slice_kernel<T, NFL>, cache, args,
+      dqmc::site_smem_bytes<T>(n, k, NFL, 64), 64, batch, stream);
 }
 
 template <typename T>

@@ -8,33 +8,48 @@
 // Woodbury inverse W = M^{-1}, M = D_P^{-1} + (I - G)[P, P] over the
 // accepted subset P, then flushed G += G[:, I] W (G[I, :] - E_I).
 //
-//   submatrix_decide_kernel  one warp per walker: gathers G[I, I], runs the
-//                            k sequential decisions on k x k data in shared
-//                            memory (submatrix_decide.cuh: G_II, W and the
-//                            accept mask, 9 KB at k = 32 in f32) and writes
-//                            W and the accept flags.  A rejected candidate
-//                            leaves W's row and column exactly zero.
-//   submatrix_prep_kernel    over (column blocks x walkers) CTAs: the flush
-//                            operands Ut = G[:, I]^T (strided reads, no G^T
-//                            copy) and M = W (G[I, :] - E_I), both (k, n).
-//   rank_k_flush_kernel      (rank_k_flush.cuh) G += Ut^T M.
+// One C call per slice (dqmc_submatrix_slice) issues two launches per group
+// of k visits (each also has an entry point of its own, for timing:
+// dqmc_submatrix_group, dqmc_submatrix_flush):
+//   submatrix_group_kernel  C CTAs per walker (C = ceil(n / 64), each
+//                           owning R <= 64 indices): every CTA gathers
+//                           G[I, I] and takes the group's decisions on the
+//                           same bits (submatrix_decide.cuh), its other
+//                           warps meanwhile copying Ut = G[:, I]^T at its
+//                           own rows; then it forms M = W (G[I, :] - E_I)
+//                           at its own columns.  Ut and M, (k, n) per
+//                           walker, go to global memory; CTA 0 writes the
+//                           accept flags.
+//   rank_k_flush_kernel     (rank_k_flush.cuh) G += Ut^T M over the whole
+//                           card.
 //
 // The factors gb and delta of each visit come from the host
 // (ops/kernels.py visit_factors), as for #3.  The order has a stride: 0 for
 // the shared order of the JAX kernel, n for per-walker orders (the
-// submatrix scheme of engine/sweep.py).
+// submatrix scheme of engine/sweep.py); the last group of a slice may be
+// short.
 //
 // What bounds it on an H100: the decisions are O(k^2) per visit on data
-// that fits in one SM's shared memory, a short latency-bound chain; the
-// three flush products are 2 k n^2 + 2 k^2 n FLOPs per block, so at the
-// stretch shape (n = 1024, k = 32) the slice is bound by the flush's FP32
-// throughput and by the launch chain (three launches per block).
+// that fits in one SM's shared memory, a short latency-bound chain (about
+// a quarter of a microsecond per visit); the flush is 2 k n^2 FLOPs per
+// walker and group on G in L2 (4 MB per walker at the stretch shape, 16 MB
+// at W = 4), which the all-card flush moves in about 13 us in float32.
 //
-// What the design does about it: only the k x k decisions stay sequential,
-// on one warp per walker; the operand preparation and the rank-k flush run
-// over many CTAs.  The flush operands are copied out of G before the
-// in-place flush, so no CTA reads a G entry another CTA is updating.
-// Plain FP32/FP64 FMA, no tensor cores.
+// What the design does about it: the first design ran each group as three
+// launches -- one warp per walker for the decisions, gathering G[I, I] in k
+// dependent rounds and reading gb, delta and u from global memory visit by
+// visit; an operand kernel reading G[I, :] down columns; the flush -- from
+// the host, one Python call each.  Now the decisions and the operands are
+// one launch, the gathers are batched, the operands are spread over the
+// walker's CTAs and formed while the decisions run, and the whole slice is
+// issued from one C call.  The flush stays a separate launch over the
+// whole card: a flush inside the walker's own C SMs (one cluster launch per
+// slice, submatrix_slice_body with R <= 64) ran slower at the stretch shape
+// (scripts/seed_split.py submatrix --parts probes).  No data passes between
+// a walker's CTAs within a launch (each decides on the same bits), so the
+// launch needs no cluster.  The decisions, M and the flush keep the first
+// design's arithmetic and so its bits.  Plain FP32/FP64 FMA, no tensor
+// cores, no atomics.
 
 #include <cuda_runtime.h>
 
@@ -43,108 +58,123 @@
 
 namespace {
 
-constexpr int KMAX = dqmc::FLUSH_KMAX;
-constexpr int PREP_THREADS = 128;
+constexpr int KMAX = dqmc::DECIDE_KMAX;
+constexpr int GROUP_THREADS = 256;
+constexpr int GROUP_RMAX = 64;  // indices per CTA
 
-// blockDim = 32 (one warp), blockIdx.x = walker; the decisions themselves
-// are submatrix_decide.cuh's, shared with the fused block's site loop.
+static_assert(KMAX == dqmc::FLUSH_KMAX, "one block rank for both kernels");
+
+// C = ceil(n / 64) CTAs per walker, R = ceil(n / C) indices each
+struct GroupGrid {
+  int C, R;
+};
+
+inline GroupGrid group_grid(int n) {
+  const int C = (n + GROUP_RMAX - 1) / GROUP_RMAX;
+  return {C, (n + C - 1) / C};
+}
+
 template <typename T>
-__global__ void __launch_bounds__(32)
-submatrix_decide_kernel(const T* __restrict__ G, T* __restrict__ Wout,
-                        T* __restrict__ acc, const int* __restrict__ order,
-                        long long s_order, const T* __restrict__ gb,
-                        const T* __restrict__ delta,
-                        const T* __restrict__ us, int n, int k, int v0,
-                        int cnt) {
+struct GroupArgs {
+  const T* G;
+  T* acc;
+  const int* order;
+  long long s_order;
+  const T* gb;
+  const T* delta;
+  const T* us;
+  T* Ut;
+  T* M;
+  int n, k, v0, cnt, R;
+};
+
+// grid (C, walkers): blockIdx.x = c owns the indices a0 = c R ...
+template <typename T>
+__global__ void __launch_bounds__(GROUP_THREADS)
+submatrix_group_kernel(const GroupArgs<T> a) {
   __shared__ dqmc::DecideSmem<T> sm;
-  const int w = blockIdx.x, lane = threadIdx.x;
-  const long long ws = (long long)w * n;
-  dqmc::submatrix_decide_warp(sm, G + (long long)w * n * n, n,
-                              order + w * s_order, v0, cnt, gb + ws,
-                              delta + ws, us + ws, acc + ws, false, lane);
-  Wout += (long long)w * k * k;
-  for (int e = lane; e < cnt * cnt; e += 32)
-    Wout[(e / cnt) * k + e % cnt] = sm.Wm[e / cnt][e % cnt];
-}
-
-// grid (ceil(n / PREP_THREADS), walkers); thread a fills column a of
-// Ut[p][a] = G[a][I_p] and M[p][a] = sum_q W[p][q] (G[I_q][a] - [I_q == a]).
-template <typename T>
-__global__ void __launch_bounds__(PREP_THREADS)
-submatrix_prep_kernel(const T* __restrict__ G, const T* __restrict__ Win,
-                      T* __restrict__ Ut, T* __restrict__ M,
-                      const int* __restrict__ order, long long s_order,
-                      int n, int k, int v0, int cnt) {
-  __shared__ T Ws[KMAX][KMAX];
-  __shared__ int I[KMAX];
-  const int w = blockIdx.y, tid = threadIdx.x;
-  G += (long long)w * n * n;
-  Win += (long long)w * k * k;
-  Ut += (long long)w * k * n;
-  M += (long long)w * k * n;
-  order += w * s_order;
-  for (int e = tid; e < cnt * cnt; e += PREP_THREADS)
-    Ws[e / cnt][e % cnt] = Win[(e / cnt) * k + e % cnt];
-  if (tid < cnt) I[tid] = order[v0 + tid];
-  __syncthreads();
-  const int a = blockIdx.x * PREP_THREADS + tid;
-  if (a >= n) return;
-  T v[KMAX];
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q)
-    v[q] = q < cnt ? G[(long long)I[q] * n + a] - (I[q] == a ? T(1) : T(0))
-                   : T(0);
-  for (int p = 0; p < cnt; ++p) {
-    T m = T(0);
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q)
-      if (q < cnt) m += Ws[p][q] * v[q];
-    M[(long long)p * n + a] = m;
-    Ut[(long long)p * n + a] = G[(long long)a * n + I[p]];
+  __shared__ T GR[KMAX * GROUP_RMAX];  // G[I, own] - E
+  __shared__ T gbs[KMAX], dls[KMAX], uss[KMAX];
+  __shared__ int I[KMAX], accs[KMAX];
+  const int n = a.n, cnt = a.cnt, R = a.R;
+  const int c = blockIdx.x, w = blockIdx.y;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int a0 = c * R;
+  const int own = max(0, min(R, n - a0));
+  const T* Gw = a.G + (long long)w * n * n;
+  const long long ws = (long long)w * n + a.v0;
+  if (tid < cnt) {
+    I[tid] = a.order[w * a.s_order + a.v0 + tid];
+    gbs[tid] = a.gb[ws + tid];
+    dls[tid] = a.delta[ws + tid];
+    uss[tid] = a.us[ws + tid];
   }
+  __syncthreads();
+  dqmc::sub_gather(sm, Gw, n, I, cnt, tid, nthreads);
+  __syncthreads();
+  T* Ut = a.Ut + (long long)w * a.k * n + a0;
+  if (tid < 32)
+    dqmc::sub_decide_warp(sm, cnt, gbs, dls, uss, accs, tid);
+  else
+    dqmc::sub_panels(Gw, n, I, cnt, a0, own, Ut, n, GR, GROUP_RMAX,
+                     tid - 32, nthreads - 32);
+  __syncthreads();
+  if (c == 0 && tid < cnt) a.acc[ws + tid] = accs[tid] ? T(1) : T(0);
+  dqmc::sub_m(sm, GR, GROUP_RMAX, a.M + (long long)w * a.k * n + a0, n, cnt,
+              own, tid, nthreads);
 }
 
 template <typename T>
-int launch_decide(const T* G, T* Wout, T* acc, const int* order,
-                  long long s_order, const T* gb, const T* delta, const T* us,
-                  int n, int k, int v0, int cnt, int batch, void* stream) {
+int launch_group(const T* G, T* acc, const int* order, long long s_order,
+                 const T* gb, const T* delta, const T* us, T* Ut, T* M,
+                 int n, int k, int v0, int cnt, int batch, void* stream) {
   if (n <= 0 || k <= 0 || k > KMAX || cnt <= 0 || cnt > k || v0 < 0 ||
-      v0 + cnt > n || batch <= 0)
+      v0 + cnt > n || batch <= 0 || batch > 65535 ||
+      (s_order != 0 && s_order != n))
     return (int)cudaErrorInvalidValue;
-  submatrix_decide_kernel<T><<<batch, 32, 0, (cudaStream_t)stream>>>(
-      G, Wout, acc, order, s_order, gb, delta, us, n, k, v0, cnt);
+  const GroupGrid g = group_grid(n);
+  const GroupArgs<T> args{G,  acc, order, s_order, gb, delta, us,
+                          Ut, M,   n,     k,       v0, cnt,   g.R};
+  submatrix_group_kernel<T><<<dim3(g.C, batch), GROUP_THREADS, 0,
+                              (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_prep(const T* G, const T* Win, T* Ut, T* M, const int* order,
-                long long s_order, int n, int k, int v0, int cnt, int batch,
-                void* stream) {
-  if (n <= 0 || k <= 0 || k > KMAX || cnt <= 0 || cnt > k || v0 < 0 ||
-      v0 + cnt > n || batch <= 0 || batch > 65535)
+int launch_slice(T* G, T* acc, const int* order, long long s_order,
+                 const T* gb, const T* delta, const T* us, T* Ut, T* M,
+                 int n, int k, int batch, void* stream) {
+  if (n <= 0 || k <= 0 || k > KMAX || batch <= 0 || batch > 65535 ||
+      (s_order != 0 && s_order != n))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n + PREP_THREADS - 1) / PREP_THREADS, batch);
-  submatrix_prep_kernel<T><<<grid, PREP_THREADS, 0, (cudaStream_t)stream>>>(
-      G, Win, Ut, M, order, s_order, n, k, v0, cnt);
-  return (int)cudaGetLastError();
+  for (int v0 = 0; v0 < n; v0 += k) {
+    const int cnt = min(k, n - v0);
+    int err = launch_group<T>(G, acc, order, s_order, gb, delta, us, Ut, M,
+                              n, k, v0, cnt, batch, stream);
+    if (err) return err;
+    err = dqmc::launch_rank_k_flush<T>(G, Ut, M, (long long)k * n, n, cnt,
+                                       batch, stream);
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // namespace
 
 #define DQMC_SUB_API(T, SFX)                                                  \
-  extern "C" int dqmc_submatrix_decide##SFX(                                  \
-      const T* G, T* Wout, T* acc, const int* order, long long s_order,       \
-      const T* gb, const T* delta, const T* us, int n, int k, int v0,         \
-      int cnt, int batch, void* stream) {                                     \
-    return launch_decide<T>(G, Wout, acc, order, s_order, gb, delta, us, n,   \
-                            k, v0, cnt, batch, stream);                       \
-  }                                                                           \
-  extern "C" int dqmc_submatrix_prep##SFX(                                    \
-      const T* G, const T* Win, T* Ut, T* M, const int* order,                \
-      long long s_order, int n, int k, int v0, int cnt, int batch,            \
+  extern "C" int dqmc_submatrix_slice##SFX(                                   \
+      T* G, T* acc, const int* order, long long s_order, const T* gb,         \
+      const T* delta, const T* us, T* Ut, T* M, int n, int k, int batch,      \
       void* stream) {                                                         \
-    return launch_prep<T>(G, Win, Ut, M, order, s_order, n, k, v0, cnt,       \
-                          batch, stream);                                     \
+    return launch_slice<T>(G, acc, order, s_order, gb, delta, us, Ut, M, n,   \
+                           k, batch, stream);                                 \
+  }                                                                           \
+  extern "C" int dqmc_submatrix_group##SFX(                                   \
+      const T* G, T* acc, const int* order, long long s_order, const T* gb,   \
+      const T* delta, const T* us, T* Ut, T* M, int n, int k, int v0,         \
+      int cnt, int batch, void* stream) {                                     \
+    return launch_group<T>(G, acc, order, s_order, gb, delta, us, Ut, M, n,   \
+                           k, v0, cnt, batch, stream);                        \
   }                                                                           \
   extern "C" int dqmc_submatrix_flush##SFX(T* G, const T* Ut, const T* M,     \
                                            long long s_uv, int n, int k,      \
@@ -154,3 +184,7 @@ int launch_prep(const T* G, const T* Win, T* Ut, T* M, const int* order,
 
 DQMC_SUB_API(float, _f32)
 DQMC_SUB_API(double, _f64)
+
+// The CTAs per walker of submatrix_group_kernel for a slice of n sites
+// (ops/kernels.py submatrix_group_ctas mirrors it for the host).
+extern "C" int dqmc_submatrix_group_ctas(int n) { return group_grid(n).C; }

@@ -58,13 +58,6 @@ _K = 32                 # block rank when it divides ns; the kernels' largest
 _SMEM_BYTES = kernels.SMEM_BYTES  # dynamic shared memory of one block
 
 
-def _decide_smem(itemsize: int) -> int:
-    """Static shared memory of the submatrix decisions: G[I, I] and W
-    (32 x 33 each), five 32-vectors and the block's sites
-    (csrc/submatrix_decide.cuh DecideSmem)."""
-    return (2 * 32 * 33 + 5 * 32) * itemsize + 4 * 32
-
-
 # ----------------------------------------------------------------------
 # primitives: plain torch
 # ----------------------------------------------------------------------
@@ -118,8 +111,9 @@ def site_loop_sub_plain(G, mask, order, gb, delta, us, l, k, sgn=None):
     mask; arguments as :func:`site_loop_plain` (one flavor, k divides n).
     Per group of k visits: the decisions on G[I, I] through the bordered
     inverse W, the flush operands Ut = G[:, I]^T and M = W (G[I, :] - E_I),
-    then G += Ut^T M -- the pieces of the per-slice submatrix twin, with
-    the site-indexed factors gathered into visit order."""
+    then G += Ut^T M -- the per-slice submatrix twin
+    (ops/kernels.py submatrix_slice_plain) on the site-indexed factors
+    gathered into visit order."""
     W, n, _ = G.shape
     base = l * n
     order_l = order[l]
@@ -127,14 +121,7 @@ def site_loop_sub_plain(G, mask, order, gb, delta, us, l, k, sgn=None):
     gb_v, delta_v = gb[:, at], delta[:, at]
     us_v = us[:, base:base + n]
     acc = torch.zeros((W, n), dtype=G.dtype, device=G.device)
-    new = lambda *shape: torch.zeros((W,) + shape, dtype=G.dtype,
-                                     device=G.device)
-    Wm, Ut, M = new(k, k), new(k, n), new(k, n)
-    for v0 in range(0, n, k):
-        kernels.submatrix_decide_plain(G, Wm, acc, order_l, gb_v, delta_v,
-                                       us_v, v0, k)
-        kernels.submatrix_prep_plain(G, Wm, Ut, M, order_l, v0, k)
-        kernels.rank_k_flush_plain(G, Ut, M, k)
+    kernels.submatrix_slice_plain(G, acc, order_l, gb_v, delta_v, us_v, k)
     mask[:, at] = acc
 
 
@@ -373,14 +360,14 @@ def block_rank(cfg: EngineConfig) -> int:
 def site_loop_smem(ns: int, itemsize: int, nfl: int = 1,
                    update: str = "delayed", k: int = _K) -> int:
     """Shared memory one CTA of the site-loop kernel needs, in bytes.
-    Delayed scheme: one cluster of CTAs per walker, the body it shares
-    with the per-slice engine's delayed slice (csrc/site_loop.cuh;
-    ops/kernels.py delayed_slice_smem).  Submatrix scheme (one CTA per
-    walker): its flush operands (2 k ns elements) and its k x k decision
-    data."""
+    Either scheme runs one cluster of CTAs per walker with R <= 32 indices
+    each: the delayed one in the body it shares with the per-slice
+    engine's delayed slice (csrc/site_loop.cuh; ops/kernels.py
+    delayed_slice_smem), the submatrix one in the body of
+    csrc/submatrix_decide.cuh (ops/kernels.py submatrix_slice_smem)."""
     k = pick_rank(ns, k)
     if update == "submatrix":
-        return 2 * k * ns * itemsize + _decide_smem(itemsize)
+        return kernels.submatrix_slice_smem(ns, itemsize, k)
     return kernels.delayed_slice_smem(ns, itemsize, nfl, k, rmax=32)
 
 
@@ -388,10 +375,9 @@ def supports_fused(model, cfg: EngineConfig | None = None) -> bool:
     """Dense models with ns <= 512: single-flavor det^2 (either in-slice
     scheme) or two-flavor det^1 (delayed only), as in the JAX package.
 
-    On CUDA the block rank stops at 32, and the submatrix loop keeps its
-    flush operands in one CTA's shared memory (227 KB), which leaves out
-    float64 at ns >= 448 (k = 32).  The delayed loop spreads a walker over
-    a cluster and takes every ns <= 512 in both float types."""
+    On CUDA the block rank stops at 32.  Both loops spread a walker over a
+    cluster and take every ns <= 512 in both float types (the shared
+    memory check below never binds there)."""
     ns = model.n_sites
     update = cfg.fused_update if cfg is not None else "delayed"
     kinds = (model.n_flavor, model.det_power)

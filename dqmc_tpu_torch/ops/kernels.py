@@ -11,7 +11,9 @@ sequential Metropolis site loop, walker-batched, in three schemes:
   launch, one thread-block cluster per walker);
 - #5 ``metropolis_slice_update_submatrix``: the k decisions of a block on
   the k x k submatrix G[I, I] through a bordered Woodbury inverse W, then
-  G += G[:, I] W (G[I, :] - E_I) (``csrc/submatrix_update.cu``);
+  G += G[:, I] W (G[I, :] - E_I) (``csrc/submatrix_update.cu``: one C call
+  per slice, two launches per group -- the decisions with the flush
+  operands, then the whole card's flush -- at every ns);
 - #4 ``metropolis_slice_update_batched_2f``: the delayed rank-k loop of a
   2-flavor (det_power = 1) model: opposite couplings per flavor, the
   ratio R = gb r_up r_dn taken once per flavor, Metropolis on |R| with the
@@ -226,10 +228,24 @@ def submatrix_prep_plain(G, Wm, Ut, M, order, v0, cnt):
     Mf[:, :, :cnt] = Wf[:, :, :cnt, :cnt] @ (rows - E)
 
 
+def submatrix_slice_plain(G, acc, order, gb, delta, us, k, sgn=None):
+    """#5: a whole slice as groups of k visits (the last one short when k
+    does not divide n), each decided, its operands formed, and flushed."""
+    n = G.shape[-1]
+    new = lambda *shape: torch.empty(G.shape[:-2] + shape, dtype=G.dtype,
+                                     device=G.device)
+    Wm, Ut, M = new(k, k), new(k, n), new(k, n)
+    for v0 in range(0, n, k):
+        cnt = min(k, n - v0)
+        submatrix_decide_plain(G, Wm, acc, order, gb, delta, us, v0, cnt,
+                               sgn)
+        submatrix_prep_plain(G, Wm, Ut, M, order, v0, cnt)
+        rank_k_flush_plain(G, Ut, M, cnt)
+
+
 PLAIN = SimpleNamespace(rank1=rank1_slice_plain,
                         delayed_slice=delayed_slice_plain,
-                        submatrix_decide=submatrix_decide_plain,
-                        submatrix_prep=submatrix_prep_plain,
+                        submatrix_slice=submatrix_slice_plain,
                         submatrix_flush=rank_k_flush_plain)
 
 
@@ -277,26 +293,25 @@ def _flush_cuda(name):
     return flush
 
 
-def submatrix_decide_cuda(G, Wm, acc, order, gb, delta, us, v0, cnt,
-                          sgn=None):
-    W, n, _ = G.shape
+def submatrix_slice_cuda(G, acc, order, gb, delta, us, k, sgn=None):
+    """#5 on G (W, n, n): the whole slice from one C call, which launches
+    the group kernel (decisions and flush operands) and the rank-k flush
+    once per group of k visits; Ut and M (W, k, n) are its scratch."""
+    W, n = G.shape[0], G.shape[-1]
+    Ut, M = (torch.empty((W, k, n), dtype=G.dtype, device=G.device)
+             for _ in range(2))
     P = _cuda.ptr
-    _launch("submatrix_decide", G, P(G), P(Wm), P(acc), P(order),
-            _stride(order), P(gb), P(delta), P(us), n, Wm.shape[1], v0, cnt,
-            W)
-
-
-def submatrix_prep_cuda(G, Wm, Ut, M, order, v0, cnt):
-    W, n, _ = G.shape
-    P = _cuda.ptr
-    _launch("submatrix_prep", G, P(G), P(Wm), P(Ut), P(M), P(order),
-            _stride(order), n, Wm.shape[1], v0, cnt, W)
+    fn = getattr(_cuda.lib(), "dqmc_submatrix_slice" + _cuda.suffix(G.dtype))
+    _cuda.call(fn, P(G), P(acc), P(order), _stride(order), P(gb), P(delta),
+               P(us), P(Ut), P(M), n, k, W, _cuda.stream(G.device))
+    groups = -(-n // k)
+    _cuda.count("submatrix_group", groups)
+    _cuda.count("submatrix_flush", groups)
 
 
 KERNELS = SimpleNamespace(rank1=rank1_slice_cuda,
                           delayed_slice=delayed_slice_cuda,
-                          submatrix_decide=submatrix_decide_cuda,
-                          submatrix_prep=submatrix_prep_cuda,
+                          submatrix_slice=submatrix_slice_cuda,
                           submatrix_flush=_flush_cuda("submatrix_flush"))
 
 
@@ -336,6 +351,30 @@ def delayed_slice_smem(ns: int, itemsize: int, nfl: int = 1,
     return (8 * kp
             + itemsize * (nfl * (4 * k * Rp + 2 * k * kp + k) + (2 + nfl) * ns)
             + 4 * (2 * ns + Rp))
+
+
+def submatrix_group_ctas(ns: int) -> int:
+    """CTAs per walker of #5's group kernel for a slice of ns sites
+    (csrc/submatrix_update.cu group_grid, exported as
+    ``dqmc_submatrix_group_ctas``): ceil(ns / 64), so that each owns at
+    most 64 indices.  No cluster, so every ns has a grid: the kernel takes
+    every ns the per-slice engine gives it (the delayed and rank-1 kernels
+    stop at MAX_SITES)."""
+    return -(-ns // 64)
+
+
+def submatrix_slice_smem(ns: int, itemsize: int, k: int = KMAX) -> int:
+    """Shared memory one CTA of the submatrix slice's cluster (R <= 32, as
+    the fused delayed loop) needs, in bytes (csrc/submatrix_decide.cuh
+    sub_smem_bytes, exported as ``dqmc_sub_smem_bytes``): the decision
+    data (G[I, I], its transpose and W, 32 x 36 each, and two 32-vectors),
+    per CTA the own rows of Ut, the own columns of M and of G[I, :]
+    (k x Rp each), the slice's gb, u and delta (3 ns) and, as ints, its
+    visit order and accept flags (2 ns)."""
+    Rp = slice_cluster(ns, 32)[2]
+    return ((3 * 32 * 36 + 2 * 32) * itemsize
+            + itemsize * (3 * k * Rp + 3 * ns)
+            + 4 * 2 * ns)
 
 
 def check_cuda_slice(G, order, gb, delta, us, scheme: str, k: int) -> None:
@@ -379,15 +418,7 @@ def sites_update(G, order, gb, delta, us, scheme: str, k: int, prims,
     if scheme == "delayed":
         prims.delayed_slice(G, acc, order, gb, delta, us, k, sgn)
         return acc > 0.5
-    new = lambda *shape: torch.empty(G.shape[:-2] + shape, dtype=G.dtype,
-                                     device=G.device)
-    Wm, Ut, M = new(k, k), new(k, n), new(k, n)
-    for v0 in range(0, n, k):
-        cnt = min(k, n - v0)
-        prims.submatrix_decide(G, Wm, acc, order, gb, delta, us, v0, cnt,
-                               sgn)
-        prims.submatrix_prep(G, Wm, Ut, M, order, v0, cnt)
-        prims.submatrix_flush(G, Ut, M, cnt)
+    prims.submatrix_slice(G, acc, order, gb, delta, us, k, sgn)
     return acc > 0.5
 
 

@@ -69,6 +69,36 @@ and the ``rank_k_flush.cuh`` it includes, in one directory:
   CTA, copies no V, moves no G, takes its FMA operands from registers, or
   runs twice (wrong results; only the times are read).
 
+The submatrix scheme before its redesign -- #5 as three launches per group
+of k visits (one warp per walker for the decisions, an operand kernel, the
+rank-k flush) and #2c on one CTA per walker -- given that commit's
+``submatrix_update.cu``, ``fused_block.cu`` and the headers they include,
+in one directory:
+
+    mkdir old && for f in submatrix_update.cu fused_block.cu \
+        rank_k_flush.cuh submatrix_decide.cuh site_loop.cuh; do
+        git show <commit>:dqmc_tpu_torch/csrc/$f > old/$f; done
+    python3 scripts/seed_split.py submatrix --source old/submatrix_update.cu \
+        [--parts split,bits,times,probes]
+
+- ``split``: device time of the seed's #5 launches per group (decide,
+  prep, flush, and ``baddbmm_`` for the same flush) and of its slice, at
+  (4, 1024, 32) in both float types, (16, 256, 32) and (4, 36, 4), each
+  with the shared and per-walker orders, and (4, 36, 32 + 4) per walker;
+  then the seed's #2c loop at (16, 256, 32) and (4, 36, 4) against builds
+  without its flush and without its k sequential decisions;
+- ``bits``: the seed's #5 slice against the checkout's (and the route-A
+  probe's, below; and at ns = 1156, past the clusters) and the seed's #2c
+  loop against the checkout's, on inputs with rejections: G and the flags
+  bit for bit?
+- ``times``: both #5 slices alternating (seed, checkout, checkout, seed)
+  in device time, the checkout's group kernel and flush alone; #2c the
+  same way, and the checkout's #2c in float64 at ns = 484 and 512;
+- ``probes``: the checkout's #5 (two launches per group, the flush over
+  the whole card) against one cluster launch per slice with the flush on
+  the walker's own SMs (``PROBE_SUB_SRC``: a copy of the package's slice
+  body with R <= 64 and the flush by owner), alternating.
+
 The stubs match the seed's text only, and the script stops on any other.
 Needs a CUDA card and nvcc; prints one line per measurement.
 """
@@ -747,15 +777,419 @@ def delayed_probes(torch, seed, tmp) -> None:
               flush=True)
 
 
+# (W, ns, k, per-walker order) of the submatrix mode's #5 timings: the
+# stretch shape (both float types below), the df32 headline's view and
+# examples/basic at JAX's rank (4), each with the shared and the
+# per-walker order; and examples/basic per walker at k = 32 (32 + 4)
+SUB_CASES = ((4, 1024, 32, "float32"), (4, 1024, 32, "float64"),
+             (16, 256, 32, "float32"), (4, 36, 4, "float32"))
+# (W, ns, k) of #2c's: the headline and examples/basic
+SUB_FUSED_CASES = ((16, 256, 32), (4, 36, 4))
+# the seed's fused submatrix loop without its flush, and (in the shared
+# decision header) without the k sequential decisions; the gathers stay
+SUB_FUSED_STUBS = {
+    "no flush": ("fused_block.cu", "for (int a = 0; a < n; ++a) {",
+                 "for (int a = 0; a < 0; ++a) {"),
+    "no decisions": ("submatrix_decide.cuh",
+                     "for (int t = 0; t < cnt; ++t) {",
+                     "for (int t = 0; t < 0; ++t) {"),
+}
+_SEED_DECIDE = [_VP] * 4 + [_LL] + [_VP] * 3 + [_I] * 5 + [_VP]
+_SEED_PREP = [_VP] * 5 + [_LL] + [_I] * 5 + [_VP]
+_SUB_LOOP = [_VP, _VP, _LL] + [_VP] * 4 + [_LL] + [_I] * 3 + [_VP]
+
+
+def seed_sub_pieces(lib, dtype):
+    """The seed's #5 launches (decide, prep, flush), called as the
+    plain pieces of ``ops/kernels.py`` are, and its whole slice as the
+    seed's ``sites_update`` ran it (three launches per group)."""
+    sfx = "_f64" if dtype == "float64" else "_f32"
+    dec = _bind(lib, "dqmc_submatrix_decide" + sfx, _SEED_DECIDE)
+    prep_fn = _bind(lib, "dqmc_submatrix_prep" + sfx, _SEED_PREP)
+    flush_fn = _bind(lib, "dqmc_submatrix_flush" + sfx, _SEED_FLUSH)
+    so = lambda order, n: 0 if order.dim() == 1 else n
+
+    def decide(G, Wm, acc, order, gb, delta, us, v0, cnt):
+        W, n = G.shape[0], G.shape[-1]
+        _check(dec(_ptr(G), _ptr(Wm), _ptr(acc), _ptr(order), so(order, n),
+                   _ptr(gb), _ptr(delta), _ptr(us), n, Wm.shape[1], v0, cnt,
+                   W, _stream()), "seed decide")
+
+    def prep(G, Wm, Ut, M, order, v0, cnt):
+        W, n = G.shape[0], G.shape[-1]
+        _check(prep_fn(_ptr(G), _ptr(Wm), _ptr(Ut), _ptr(M), _ptr(order),
+                       so(order, n), n, Wm.shape[1], v0, cnt, W, _stream()),
+               "seed prep")
+
+    def flush(G, Ut, M, cnt):
+        n = G.shape[-1]
+        _check(flush_fn(_ptr(G), _ptr(Ut), _ptr(M), Ut.shape[-2] * n, n, cnt,
+                        G.shape[0], _stream()), "seed flush")
+
+    def run(G, acc, order, gb, delta, us, k, sgn=None):
+        import torch
+        W, n = G.shape[0], G.shape[-1]
+        new = lambda *s: torch.empty((W,) + s, dtype=G.dtype,
+                                     device=G.device)
+        Wm, Ut, M = new(k, k), new(k, n), new(k, n)
+        for v0 in range(0, n, k):
+            cnt = min(k, n - v0)
+            decide(G, Wm, acc, order, gb, delta, us, v0, cnt)
+            prep(G, Wm, Ut, M, order, v0, cnt)
+            flush(G, Ut, M, cnt)
+    return decide, prep, flush, run
+
+
+def sub_loop_entry(lib, dtype):
+    """A build's fused submatrix loop (``dqmc_site_loop_sub``) for one
+    slice of site_inputs(), without counting."""
+    fn = _bind(lib, "dqmc_site_loop_sub"
+               + ("_f64" if dtype == "float64" else "_f32"), _SUB_LOOP)
+
+    def run(torch, inputs, k):
+        G0, gb, delta, us, order = inputs
+        W, ns = gb.shape
+        G = G0.clone()
+        mask = torch.zeros_like(gb)
+        _check(fn(_ptr(G), _ptr(mask), ns, _ptr(order), _ptr(gb),
+                  _ptr(delta), _ptr(us), ns, ns, k, W, _stream()),
+               "submatrix loop")
+        return G, mask
+    return run
+
+
+# #5 as one cluster launch per slice (route A): the package's submatrix
+# slice body with R <= 64 rows per CTA and site_loop.cuh's flush by owner
+# (which needs a second copy buffer), for the probe against the
+# checkout's two launches per group
+PROBE_SUB_SRC = r"""
+#include "submatrix_decide.cuh"
+namespace {
+constexpr int RMAX = 64;
+template <typename T>
+size_t smem_bytes(int n, int k) {
+  const size_t Rp = dqmc::site_cluster(n, RMAX).Rp;
+  return sizeof(dqmc::DecideSmem<T>) +
+         sizeof(T) * (4 * (size_t)k * Rp + 3 * (size_t)n) +
+         sizeof(int) * 2 * (size_t)n;
+}
+template <typename T>
+__global__ void __launch_bounds__(dqmc::SITE_THREADS, 1)
+sub_slice_kernel(const dqmc::SiteLoopArgs<T> a) {
+  using namespace dqmc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = a.n, k = a.k;
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int R = (n + C - 1) / C;
+  const int Rp = (R + 3) / 4 * 4;
+  const int a0 = c * R;
+  const int own = max(0, min(R, n - a0));
+  const int kR = k * Rp;
+  DecideSmem<T>& sm = *reinterpret_cast<DecideSmem<T>*>(smem_raw);
+  T* Uo = reinterpret_cast<T*>(smem_raw + sizeof(DecideSmem<T>));
+  T* Vo = Uo + kR;
+  T* GR = Vo + kR;  // G[I, own] - E; then a copy buffer of the flush
+  T* B1 = GR + kR;  // the flush's second copy buffer
+  T* gbs = B1 + kR;
+  T* uss = gbs + n;
+  T* dls = uss + n;
+  int* ords = reinterpret_cast<int*>(dls + n);
+  int* accs = ords + n;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int w = blockIdx.y;
+  T* Gw = a.G + (long long)w * n * n;
+  const int* order = a.order + w * a.s_order;
+  for (int e = tid; e < n; e += nthreads) ords[e] = order[e];
+  __syncthreads();
+  for (int e = tid; e < n; e += nthreads) {
+    gbs[e] = a.gb[w * a.s_stream + e];
+    dls[e] = a.delta[w * a.s_stream + e];
+    uss[e] = a.us[w * a.s_stream + e];
+  }
+  for (int g0 = 0; g0 < n; g0 += k) {
+    const int cnt = min(k, n - g0);
+    const int* I = ords + g0;
+    __syncthreads();
+    sub_gather(sm, Gw, n, I, cnt, tid, nthreads);
+    __syncthreads();
+    if (tid < 32)
+      sub_decide_warp(sm, cnt, gbs + g0, dls + g0, uss + g0, accs + g0, tid);
+    else
+      sub_panels(Gw, n, I, cnt, a0, own, Uo, Rp, GR, Rp, tid - 32,
+                 nthreads - 32);
+    __syncthreads();
+    sub_m(sm, GR, Rp, Vo, Rp, cnt, own, tid, nthreads);
+    cluster.sync();
+    flush_by_owner<T>(cluster, Gw + (long long)a0 * n, Uo, Vo, 0, GR, B1, n,
+                      R, Rp, own, cnt);
+    cluster.sync();
+  }
+  if (c == 0)
+    for (int e = tid; e < n; e += nthreads)
+      a.flags[w * a.s_flags + e] = accs[e] ? T(1) : T(0);
+}
+template <typename T>
+int run(T* G, T* acc, const int* order, long long s_order, const T* gb,
+        const T* delta, const T* us, int n, int k, int batch, void* stream) {
+  static dqmc::SiteLaunchCache cache;
+  const dqmc::SiteLoopArgs<T> args{G,  acc, n,       order, s_order, gb, delta,
+                                   us, n,   nullptr, n,     k,       true};
+  return dqmc::launch_site_loop<T>(sub_slice_kernel<T>, cache, args,
+                                   smem_bytes<T>(n, k), RMAX, batch,
+                                   stream);
+}
+}  // namespace
+extern "C" int probe_slice_f32(float* G, float* acc, const int* order,
+                               long long s_order, const float* gb,
+                               const float* delta, const float* us, int n,
+                               int k, int batch, void* stream) {
+  return run<float>(G, acc, order, s_order, gb, delta, us, n, k, batch,
+                    stream);
+}
+extern "C" int probe_slice_f64(double* G, double* acc, const int* order,
+                               long long s_order, const double* gb,
+                               const double* delta, const double* us, int n,
+                               int k, int batch, void* stream) {
+  return run<double>(G, acc, order, s_order, gb, delta, us, n, k, batch,
+                     stream);
+}
+"""
+_PROBE_SLICE = [_VP] * 3 + [_LL] + [_VP] * 3 + [_I] * 3 + [_VP]
+
+
+def probe_slice_entry(lib, dtype):
+    """The route-A probe's one-launch slice, called as
+    ``ops/kernels.py submatrix_slice_plain`` is."""
+    fn = _bind(lib, "probe_slice" + ("_f64" if dtype == "float64"
+                                     else "_f32"), _PROBE_SLICE)
+
+    def run(G, acc, order, gb, delta, us, k, sgn=None):
+        W, n = G.shape[0], G.shape[-1]
+        _check(fn(_ptr(G), _ptr(acc), _ptr(order),
+                  0 if order.dim() == 1 else n, _ptr(gb), _ptr(delta),
+                  _ptr(us), n, k, W, _stream()), "probe slice")
+    return run
+
+
+def _sub_cases():
+    for W, ns, k, dtype in SUB_CASES:
+        for pw in (False, True):
+            yield W, ns, k, dtype, pw
+    yield 4, 36, 32, "float32", True
+
+
+def submatrix_split(torch, source, tmp) -> None:
+    """Step 0: the seed's #5 launches per group and its slice, and the
+    seed's #2c loop with and without its flush and its decisions, in
+    device time."""
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source)["seed"]
+    for W, ns, k, dtype, pw in _sub_cases():
+        inputs = delayed_inputs(torch, W, ns, 1, dtype, 1, True, pw)
+        G0, gb, delta, us, order = inputs
+        decide, prep, flush, slice_fn = seed_sub_pieces(seed, dtype)
+        G = G0.clone()
+        new = lambda *s: torch.zeros((W,) + s, dtype=G.dtype, device="cuda")
+        Wm, Ut, M = new(k, k), new(k, ns), new(k, ns)
+        acc = torch.zeros_like(gb)
+        blk = (acc, order, gb, delta, us, 0, k)
+        decide(G, Wm, *blk)
+        prep(G, Wm, Ut, M, order, 0, k)
+        groups = -(-ns // k)
+        t = {"decide": device_ms(lambda: decide(G, Wm, *blk), 10),
+             "prep": device_ms(lambda: prep(G, Wm, Ut, M, order, 0, k), 10),
+             "flush": device_ms(lambda: flush(G, Ut, M, k), 10),
+             "baddbmm": device_ms(lambda: G.baddbmm_(Ut.mT, M), 10),
+             "slice": device_ms(lambda: run_slice(torch, slice_fn, inputs,
+                                                  k), 3)}
+        print(f"submatrix seed {_tag(W, ns, k, 1, dtype, pw)}, device time "
+              f"per group: decide {t['decide']:.4f} ms, prep "
+              f"{t['prep']:.4f} ms, flush {t['flush']:.4f} ms, baddbmm_ "
+              f"{t['baddbmm']:.4f} ms; slice {t['slice']:.4f} ms ({groups} "
+              f"groups: launches x groups "
+              f"{(t['decide'] + t['prep'] + t['flush']) * groups:.4f})",
+              flush=True)
+    src = source.parent
+    builds = {"seed": source.parent / "fused_block.cu"}
+    for i, (name, (fname, old, new_text)) in enumerate(
+            SUB_FUSED_STUBS.items()):
+        d = tmp / f"stub{i}"
+        d.mkdir()
+        for f in src.iterdir():
+            if f.suffix in (".cu", ".cuh"):
+                text = f.read_text()
+                if f.name == fname:
+                    if text.count(old) != 1:
+                        sys.exit(f"stub {name!r} matches {text.count(old)} "
+                                 f"times in {f}")
+                    text = text.replace(old, new_text)
+                (d / f.name).write_text(text)
+        builds[name] = d / "fused_block.cu"
+    libs = {}
+    for name, path in builds.items():
+        tag = "fused_" + name.replace(" ", "_")
+        libs[name] = nvcc_all({tag: path.read_text()}, tmp, path)[tag]
+    for W, ns, k in SUB_FUSED_CASES:
+        inputs = site_inputs(torch, W, ns, 1, "float32", 1, True)
+        t = {name: device_ms(lambda: sub_loop_entry(lib, "float32")(
+            torch, inputs, k), 3) for name, lib in libs.items()}
+        print(f"submatrix seed #2c ({W}, {ns}, {k}) float32, device time per "
+              f"slice: " + ", ".join(f"{name} {ms:.4f} ms"
+                                     for name, ms in t.items()), flush=True)
+
+
+def _same(torch, a, b):
+    """G and the flags of two runs: equal bit for bit?"""
+    same = [torch.equal(x, y) for x, y in zip(a, b)]
+    return ("G " + ("equal" if same[0] else
+                    f"DIFFERS (max {float((a[0] - b[0]).abs().max()):.3e})")
+            + ", flags " + ("equal" if same[1] else
+                            f"DIFFER ({int((a[1] != b[1]).sum())})"))
+
+
+def submatrix_bits(torch, source, tmp) -> None:
+    """The seed's #5 slice and #2c loop against the checkout's (and #5's
+    route-A probe) on inputs with rejections: G and the flags bit for
+    bit?"""
+    from dqmc_tpu_torch.ops import kernels as tk
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source)["seed"]
+    fseed = nvcc_all({"fseed": (source.parent / "fused_block.cu")
+                      .read_text()}, tmp,
+                     source.parent / "fused_block.cu")["fseed"]
+    probe = nvcc_all({"probe": PROBE_SUB_SRC}, tmp)["probe"]
+    for W, ns, k, dtype, pw in _sub_cases():
+        inputs = delayed_inputs(torch, W, ns, 1, dtype, 7 + ns, False, pw)
+        a = run_slice(torch, seed_sub_pieces(seed, dtype)[3], inputs, k)
+        b = run_slice(torch, tk.KERNELS.submatrix_slice, inputs, k)
+        c = run_slice(torch, probe_slice_entry(probe, dtype), inputs, k)
+        torch.cuda.synchronize()
+        rej = int((a[1] == 0).sum())
+        full = int((a[1].view(W, -1)[:, :ns // k * k].view(W, -1, k)
+                    .sum(-1) == k).sum())
+        print(f"submatrix bits {_tag(W, ns, k, 1, dtype, pw)} "
+              f"({a[1].numel() - rej} of {a[1].numel()} accepted, {full} "
+              f"groups all accepted): checkout {_same(torch, a, b)}; route A "
+              f"{_same(torch, a, c)}", flush=True)
+    # #5 past the clusters' ns <= 1024 (ceil(ns / 64) CTAs per walker, a
+    # short last group; no route A there)
+    for dtype in ("float64", "float32"):
+        W, ns, k = 2, 34 * 34, 32
+        inputs = delayed_inputs(torch, W, ns, 1, dtype, 7 + ns, False, True)
+        a = run_slice(torch, seed_sub_pieces(seed, dtype)[3], inputs, k)
+        b = run_slice(torch, tk.KERNELS.submatrix_slice, inputs, k)
+        torch.cuda.synchronize()
+        print(f"submatrix bits {_tag(W, ns, k, 1, dtype, True)} "
+              f"({int(a[1].sum())} of {a[1].numel()} accepted): checkout "
+              f"{_same(torch, a, b)}", flush=True)
+    for W, ns, k in ((16, 256, 32), (4, 36, 4), (16, 416, 32)):
+        for dtype in ("float64", "float32"):
+            inputs = site_inputs(torch, W, ns, 1, dtype, 7 + ns, False)
+            a = sub_loop_entry(fseed, dtype)(torch, inputs, k)
+            b = sub_loop_entry(_checkout(), dtype)(torch, inputs, k)
+            torch.cuda.synchronize()
+            print(f"submatrix bits #2c ({W}, {ns}, {k}) {dtype} "
+                  f"({int(a[1].sum())} of {a[1].numel()} accepted): "
+                  f"checkout {_same(torch, a, b)}", flush=True)
+
+
+def _checkout():
+    from dqmc_tpu_torch import _cuda
+    return _cuda.lib()
+
+
+def submatrix_times(torch, source, tmp) -> None:
+    """The seed's #5 slice against the checkout's, alternating (seed,
+    checkout, checkout, seed), in device time, with the checkout's group
+    kernel and flush alone; then #2c the same way, and #2c in float64 at
+    ns = 484 and 512 (which the seed refused)."""
+    from dqmc_tpu_torch.ops import kernels as tk
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source)["seed"]
+    fseed = nvcc_all({"fseed": (source.parent / "fused_block.cu")
+                      .read_text()}, tmp,
+                     source.parent / "fused_block.cu")["fseed"]
+    lib = _checkout()
+    for W, ns, k, dtype, pw in _sub_cases():
+        inputs = delayed_inputs(torch, W, ns, 1, dtype, 1, True, pw)
+        fns = {"seed": seed_sub_pieces(seed, dtype)[3],
+               "checkout": tk.KERNELS.submatrix_slice}
+        t = {"seed": [], "checkout": []}
+        for name in ("seed", "checkout", "checkout", "seed"):
+            t[name].append(device_ms(lambda: run_slice(
+                torch, fns[name], inputs, k), 3))
+        G0, gb, delta, us, order = inputs
+        G = G0.clone()
+        acc = torch.zeros_like(gb)
+        Ut, M = (torch.zeros((W, k, ns), dtype=G.dtype, device="cuda")
+                 for _ in range(2))
+        sfx = "_f64" if dtype == "float64" else "_f32"
+        grp = _bind(lib, "dqmc_submatrix_group" + sfx,
+                    [_VP] * 3 + [_LL] + [_VP] * 5 + [_I] * 5 + [_VP])
+        so = 0 if order.dim() == 1 else ns
+        one = lambda: _check(grp(_ptr(G), _ptr(acc), _ptr(order), so,
+                                 _ptr(gb), _ptr(delta), _ptr(us), _ptr(Ut),
+                                 _ptr(M), ns, k, 0, k, W, _stream()),
+                             "group")
+        tg = device_ms(one, 10)
+        tf = device_ms(lambda: tk.KERNELS.submatrix_flush(G, Ut, M, k), 10)
+        print(f"submatrix times {_tag(W, ns, k, 1, dtype, pw)}, device time "
+              f"per slice: seed {t['seed'][0]:.4f} / {t['seed'][1]:.4f} ms, "
+              f"checkout {t['checkout'][0]:.4f} / {t['checkout'][1]:.4f} ms;"
+              f" checkout per group: group kernel {tg:.4f} ms, flush "
+              f"{tf:.4f} ms", flush=True)
+    for W, ns, k in SUB_FUSED_CASES:
+        inputs = site_inputs(torch, W, ns, 1, "float32", 1, True)
+        fns = {"seed": sub_loop_entry(fseed, "float32"),
+               "checkout": sub_loop_entry(lib, "float32")}
+        t = {"seed": [], "checkout": []}
+        for name in ("seed", "checkout", "checkout", "seed"):
+            t[name].append(device_ms(lambda: fns[name](torch, inputs, k), 3))
+        print(f"submatrix times #2c ({W}, {ns}, {k}) float32, device time "
+              f"per slice: seed {t['seed'][0]:.4f} / {t['seed'][1]:.4f} ms, "
+              f"checkout {t['checkout'][0]:.4f} / {t['checkout'][1]:.4f} ms",
+              flush=True)
+    for W, ns in ((16, 484), (16, 512)):
+        k = 4 if ns % 32 else 32
+        inputs = site_inputs(torch, W, ns, 1, "float64", 1, True)
+        ms = device_ms(lambda: sub_loop_entry(lib, "float64")(
+            torch, inputs, k), 3)
+        print(f"submatrix times #2c ({W}, {ns}, {k}) float64 (the seed "
+              f"refused it), device time per slice: checkout {ms:.4f} ms",
+              flush=True)
+
+
+def submatrix_probes(torch, source, tmp) -> None:
+    """#5's two launches per group (the checkout) against one cluster
+    launch per slice with the in-cluster flush (route A, PROBE_SUB_SRC),
+    alternating, in device time."""
+    from dqmc_tpu_torch.ops import kernels as tk
+    probe = nvcc_all({"probe": PROBE_SUB_SRC}, tmp)["probe"]
+    for W, ns, k, dtype in SUB_CASES:
+        inputs = delayed_inputs(torch, W, ns, 1, dtype, 1, True, False)
+        fns = {"two launches per group": tk.KERNELS.submatrix_slice,
+               "one cluster launch": probe_slice_entry(probe, dtype)}
+        t = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            t[name].append(device_ms(lambda: run_slice(
+                torch, fns[name], inputs, k), 3))
+        print(f"submatrix probes {_tag(W, ns, k, 1, dtype, False)}, device "
+              f"time per slice: " + ", ".join(
+                  f"{name} {a:.4f} / {b:.4f} ms" for name, (a, b) in
+                  t.items()), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("k1", "sites", "delayed"))
+    ap.add_argument("kernel", choices=("k1", "sites", "delayed",
+                                       "submatrix"))
     ap.add_argument("--source", required=True, type=Path,
                     help="the seed's cgs2_qr.cu (k1), fused_block.cu "
-                    "(sites) or site_update.cu (delayed)")
+                    "(sites), site_update.cu (delayed) or "
+                    "submatrix_update.cu (submatrix)")
     ap.add_argument("--parts", default="split,barriers,bits,times",
                     help="sites: which of split, barriers, bits, times; "
-                    "delayed: which of split, bits, times, probes")
+                    "delayed and submatrix: which of split, bits, times, "
+                    "probes")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -764,6 +1198,15 @@ def main() -> None:
     if opts.kernel == "k1":
         return k1_split(opts)
     parts = opts.parts.split(",")
+    if opts.kernel == "submatrix":
+        with tempfile.TemporaryDirectory() as tmp:
+            for part, run in (("split", submatrix_split),
+                              ("bits", submatrix_bits),
+                              ("times", submatrix_times),
+                              ("probes", submatrix_probes)):
+                if part in parts:
+                    run(torch, opts.source, Path(tmp))
+        return
     if opts.kernel == "delayed":
         with tempfile.TemporaryDirectory() as tmp:
             seed = nvcc_all({"seed": opts.source.read_text()}, Path(tmp),

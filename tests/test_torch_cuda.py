@@ -110,7 +110,7 @@ SITE_SCHEMES = {
     "delayed": ("metropolis_slice_update_batched", "k_delay",
                 ("delayed_slice",)),
     "submatrix": ("metropolis_slice_update_submatrix", "k_sub",
-                  ("submatrix_decide", "submatrix_prep", "submatrix_flush")),
+                  ("submatrix_group", "submatrix_flush")),
 }
 
 

@@ -214,7 +214,8 @@ def test_supports_fused():
 
 def test_supports_fused_two_flavors_and_submatrix():
     """The 2-flavor model takes the delayed scheme only; the submatrix
-    scheme is single-flavor (fused.py:614-626 of the JAX package)."""
+    scheme is single-flavor (fused.py:614-626 of the JAX package), and on
+    CUDA takes every ns <= 512 in float64 too."""
     rep = torch_model(_setup(repulsive=(4.0, 0.0))[0])
     att = torch_model(_setup()[0])
     delayed = TEngineConfig(nt=12, n_stab=3)
@@ -224,8 +225,20 @@ def test_supports_fused_two_flavors_and_submatrix():
     assert not tfused.supports_fused(rep, sub)
     assert tfused.supports_fused(att, sub)
     assert tfused.block_rank(sub) == 8 and tfused.block_rank(delayed) == 32
-    assert tfused.block_rank(TEngineConfig(
-        nt=12, n_stab=3, fused_update="submatrix")) == 32
+    sub32 = TEngineConfig(nt=12, n_stab=3, fused_update="submatrix")
+    assert tfused.block_rank(sub32) == 32
+    # on CUDA the submatrix scheme takes float64 at ns = 448 ... 512, as
+    # JAX's supports_fused does (its one-CTA loop stopped at 416): a stub
+    # model that claims only a CUDA device, float64 and its sizes
+    from types import SimpleNamespace
+    stub = SimpleNamespace(n_flavor=1, det_power=2,
+                           device=torch.device("cuda"),
+                           expK=torch.zeros(1, dtype=torch.float64))
+    for ns in range(448, 513):
+        stub.n_sites = ns
+        assert tfused.supports_fused(stub, sub32)
+    stub.n_sites = 513
+    assert not tfused.supports_fused(stub, sub32)
 
 
 @pytest.mark.parametrize("ns,itemsize,nfl,update,fits", [
@@ -234,12 +247,12 @@ def test_supports_fused_two_flavors_and_submatrix():
     (256, 4, 2, "delayed", True), (448, 4, 2, "delayed", True),
     (512, 4, 2, "delayed", True), (224, 8, 2, "delayed", True),
     (256, 8, 2, "delayed", True), (512, 4, 1, "submatrix", True),
-    (416, 8, 1, "submatrix", True), (448, 8, 1, "submatrix", False),
+    (416, 8, 1, "submatrix", True), (448, 8, 1, "submatrix", True),
 ])
 def test_site_loop_shared_memory_gate(ns, itemsize, nfl, update, fits):
     """What one CTA's 227 KB of shared memory holds at k = 32: the gate
-    supports_fused applies on CUDA.  The delayed loop spreads a walker over
-    a cluster and takes every ns <= 512; the submatrix loop keeps one CTA
-    per walker."""
+    supports_fused applies on CUDA.  Both loops spread a walker over a
+    cluster and take every ns <= 512 (the submatrix loop, one CTA per
+    walker until it too took a cluster, stopped at float64 ns = 416)."""
     need = tfused.site_loop_smem(ns, itemsize, nfl, update)
     assert (need <= tfused._SMEM_BYTES) == fits

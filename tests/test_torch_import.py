@@ -195,11 +195,12 @@ def test_kernel_sources_are_listed():
     assert set(_cuda.LAUNCHES) == {
         "cgs2_qr", "fused_wrap", "fused_sites", "fused_sites_2f",
         "fused_sites_sub", "delayed_slice", "delayed_slice_2f",
-        "rank1_sites", "submatrix_decide", "submatrix_prep",
-        "submatrix_flush", "df_qr_panel", "tf_qr_panel"}
+        "rank1_sites", "submatrix_group", "submatrix_flush", "df_qr_panel",
+        "tf_qr_panel"}
     # every C entry point has both float types' signatures declared
     assert {"dqmc_site_loop_2f", "dqmc_site_loop_sub",
-            "dqmc_delayed_slice_2f"} <= set(_cuda._SIGNATURES)
+            "dqmc_delayed_slice_2f", "dqmc_submatrix_slice",
+            "dqmc_submatrix_group"} <= set(_cuda._SIGNATURES)
     # the multiword panels are float32 only and build without contraction
     assert set(_cuda._FLOAT32_SIGNATURES) == {"dqmc_df_qr_panel",
                                               "dqmc_tf_qr_panel"}

@@ -201,8 +201,11 @@ def test_pick_rank_is_jax_rule():
 def test_cuda_slice_check_refuses_cpu_tensors(scheme):
     """The check that guards every kernel launch refuses CPU tensors: a
     slice on the CUDA path launches its kernels or raises, and never runs
-    the plain twin."""
-    n = 16
+    the plain twin.  The submatrix scheme's kernels take every ns (#5's
+    grid has no cluster), so its check reaches the device check at
+    ns = 2048, where the delayed and rank-1 kernels stop at MAX_SITES
+    (test_cuda_slice_check_refuses_shapes_beyond_the_kernels)."""
+    n = 2048 if scheme == "submatrix" else 16
     G = torch.zeros((2, n, n))
     v = torch.zeros((2, n))
     order = torch.arange(n, dtype=torch.int32)
@@ -227,7 +230,8 @@ def test_cuda_slice_check_refuses_shapes_beyond_the_kernels(scheme, n, k):
 def test_delayed_slice_budget_takes_every_kernel_shape():
     """The delayed-slice kernel's cluster and shared memory (the Python
     mirror of csrc/site_loop.cuh) fit every shape the per-slice engine
-    gives it: ns <= 1024, k <= 32, one or two flavors, float32 or float64.
+    gives it: ns <= 1024, k <= 32, one or two flavors, float32 or float64;
+    so do the submatrix kernels' (#2c's cluster, #5's grid).
     A cluster is the fewest CTAs (at most 16) with at most 64 sites each,
     and a CTA takes at most one block's 232,448 bytes of dynamic shared
     memory; the largest shape, float64 with two flavors at ns = 1024,
@@ -245,6 +249,22 @@ def test_delayed_slice_budget_takes_every_kernel_shape():
                     assert need <= tk.SMEM_BYTES
                     largest = max(largest, need)
     assert largest == tk.delayed_slice_smem(1024, 8, 2, 32) == 205824
+    # the submatrix scheme on the same clusters (#2c, R <= 32, ns <= 512:
+    # csrc/submatrix_decide.cuh sub_smem_bytes) fits too, the largest
+    # shape in 69,120 bytes; #5's grid (csrc/submatrix_update.cu
+    # group_grid) is ceil(ns / 64) CTAs of at most 64 indices at any ns
+    largest = 0
+    for ns in range(1, 513):
+        for k in range(1, tk.KMAX + 1):
+            for itemsize in (4, 8):
+                need = tk.submatrix_slice_smem(ns, itemsize, k)
+                assert need <= tk.SMEM_BYTES
+                largest = max(largest, need)
+    assert largest == tk.submatrix_slice_smem(512, 8, 32) == 69120
+    for ns in range(1, 4097):
+        C = tk.submatrix_group_ctas(ns)
+        R = -(-ns // C)
+        assert R <= 64 and C * R >= ns > (C - 1) * R
     # the wrapper's check takes the largest shape (and then refuses the
     # CPU tensors)
     G = torch.zeros((1, 2, 1024, 1024), dtype=torch.float64)
