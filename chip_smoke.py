@@ -47,7 +47,8 @@ non-zero):
    copies of the kernels' cluster and shared-memory budgets against the
    library's; each kernel timed alone at the stretch shape (#3's slice,
    and #5's group kernel and flush over a slice, in device time, the flush
-   beside torch.baddbmm in device time);
+   beside torch.baddbmm in device time), and #6 at examples/basic's
+   (W=4, ns=36) in device time;
 7. the stretch configuration (32x32, beta=16, nt=320, n_stab=5, U=4, W=4,
    float32) through run_simulation, with the default site update (#3) and
    with site_update = submatrix (#5), one pair each;
@@ -82,8 +83,11 @@ non-zero):
     then the headline shape with fused_update = submatrix as phase 5 runs
     it (three timed pairs, one profiled);
 14. the multiword panel kernels #7 (df32) and #8 (tf32) against their plain
-    twin, bit for bit, at (16, 32, 256), (16, 32, 64) and (4, 32, 512), each
-    timed beside its twin, its bound and torch.linalg.qr in float64;
+    twin, bit for bit, on graded panels at (16, 32, 256), (16, 32, 64),
+    (4, 32, 512) and (4, 32, 32), a panel with zero rows and one whose
+    first digits of y, q and e reach 128 (the carry planes); each timed in
+    device time at the first three shapes, at (16, 32, 256) beside its
+    twin, its bound and torch.linalg.qr in float64;
 15. the df32 headline (16x16, beta=8, nt=160, n_stab=5, W=16, dtype =
     df32) through run_simulation (#3, K1, #7), G_df of the final fields
     against the native float64 rebuild (< 1e-7), two blocks profiled;
@@ -740,6 +744,34 @@ def phase_headline(torch, card):
     headline_pairs(torch, card, "phase 5")
 
 
+def time_rank1_basic(torch, gen, tk, report):
+    """#6 alone at the shape examples/basic launches it (site_update =
+    scan: W = 4 walkers of ns = 36, one launch per slice), in device time
+    beside its plain piece and its bound; kept under the entry's
+    ``shapes``."""
+    W, L, _ = SITE_SHAPES[0]
+    n = L * L
+    dt = torch.float32
+    G, fields, orders, props, us, g, alpha = slice_inputs(torch, gen, W, L,
+                                                          dt)
+    order = orders.to(torch.int32).contiguous()
+    _, gb, delta = tk.visit_factors(g, alpha, fields, orders, props, dt)
+    acc = torch.empty((W, n), dtype=dt, device="cuda")
+    row = _per_walker_rows(torch, tk.KERNELS, tk.PLAIN, G[:, 0].contiguous(),
+                           (acc, order, gb.contiguous(), delta.contiguous(),
+                            us), W, n)["rank1_sites"]
+    kern, plain, _, ops, nbytes, _ = row
+    ms = device_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 1)
+    record(report, "rank1_sites", max_abs_err=None, ms=ms, plain_ms=plain_ms,
+           ops=ops, nbytes=nbytes, shape=(W, n), main=False)
+    b = report["rank1_sites"]["shapes"][-1]
+    say(f"phase 6: rank1_sites f32 W={W} ns={n} (examples/basic, site_update"
+        f" = scan), one launch: kernel {ms:.4f} ms (device time, with a "
+        f"copy of G), plain {plain_ms:.3f} ms, {int(acc.sum())} of {W * n} "
+        f"accepted, bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+
+
 def slice_inputs(torch, gen, W, L, dtype):
     """One slice's inputs at the stretch dtau = 0.05 (beta = 1, nt = 20):
     a physical G (W, 1, ns, ns) from fresh walkers, slice-start fields,
@@ -1025,6 +1057,7 @@ def time_site_kernels(torch, gen, tk, report, slice_err):
     K, P = tk.KERNELS, tk.PLAIN
     rows = _shared_order_rows(torch, K, P, G3, args(orders[0]), W, n, k)
     rows.update(_per_walker_rows(torch, K, P, G3, args(orders), W, n))
+    time_rank1_basic(torch, gen, tk, report)
     # device time (a CUDA graph of calls) where one launch is short enough
     # for events around it to time the host
     graphed = {"delayed_slice": 5, "submatrix_group": 3,
@@ -1881,9 +1914,11 @@ def phase_fused_submatrix(torch, card):
 
 
 # #7 and #8 against their twins: the multiword engines' and tiers' panel
-# shape at the headline (B = 16 walkers, n = 256), examples' n = 64, and the
-# kernels' largest n = 512
+# shape at the headline (B = 16 walkers, n = 256), examples' n = 64 and the
+# kernels' largest n = 512 (tf32's shared-memory ceiling), each timed; the
+# bit checks add the smallest n = 32 and the rare branches (panel_cases)
 PANEL_SHAPES = ((16, 256), (16, 64), (4, 512))
+PANEL_CHECK_SHAPES = PANEL_SHAPES + ((4, 32),)
 # float32 operations per element per column of one panel, from the kernel's
 # loops: four digit extractions (NP x (4 + one multiword subtraction)), two
 # updates (NP-term recombination + subtraction) and the normalization; the
@@ -1896,24 +1931,65 @@ _MW_MUL = {2: 26, 3: 80}
 def panel_inputs(torch, gen, nm, B, n):
     """A graded multiword panel (B, 32, n): rows = columns of A scaled over
     e^+-6, words split from float64."""
-    base = torch.randn((B, 32, n), generator=gen, device="cuda",
+    dev = gen.device
+    base = torch.randn((B, 32, n), generator=gen, device=dev,
                        dtype=torch.float64)
-    grade = torch.exp((torch.rand((B, 32, 1), generator=gen, device="cuda",
+    grade = torch.exp((torch.rand((B, 32, 1), generator=gen, device=dev,
                                   dtype=torch.float64) - 0.5) * 12.0)
     return nm.from_f64(base * grade)
 
 
+def panel_cases(torch, gen, nm):
+    """(label, P) of every panel #7 and #8 are held on: a graded panel at
+    each of PANEL_CHECK_SHAPES; one with exactly zero rows 0 and 9 (the
+    zero-norm branch); and one that takes the saturated first digits (the
+    carry planes) of y, q and e.  There row 0 is the unit vector e_0, so
+    q_0 = e_0 exactly; row 1 is alpha e_0 plus a part on lanes 1 .. n/2-1
+    with alpha = 2 - 2^-8, so its first pass reads y_0 / s_y = 1 - 2^-9
+    (first y digit 128) and e_0 = alpha (first e digit 128); row 2 is
+    (1 - 2^-9) e_{n/2} plus a part below 2^-9 on lanes n/2+1 .. n-1,
+    orthogonal to rows 0 and 1 exactly, so its y and its q = y / |y|
+    (q_{n/2} > 1 - 2^-8) take a first digit of 128.  The other rows are
+    graded."""
+    cases = [(f"graded ({B}, 32, {n})", panel_inputs(torch, gen, nm, B, n))
+             for B, n in PANEL_CHECK_SHAPES]
+    dev = gen.device
+    zero = nm.to_f64(panel_inputs(torch, gen, nm, 4, 64))
+    zero[:, [0, 9]] = 0.0
+    cases.append(("zero rows 0, 9 (4, 32, 64)", nm.from_f64(zero)))
+    B, n, h = 4, 128, 64
+    P = nm.to_f64(panel_inputs(torch, gen, nm, B, n))
+    u = lambda *s: torch.rand(s, generator=gen, device=dev,
+                              dtype=torch.float64) - 0.5
+    P[:, :3] = 0.0
+    P[:, 0, 0] = 1.0
+    P[:, 1, 0] = 2.0 - 2.0 ** -8
+    P[:, 1, 1:h] = u(B, h - 1)
+    P[:, 2, h] = 1.0 - 2.0 ** -9
+    P[:, 2, h + 1:] = u(B, n - h - 1) * 2.0 ** -9
+    cases.append((f"carries of y, q, e ({B}, 32, {n})", nm.from_f64(P)))
+    return cases
+
+
+def first_digit_max(V, nm):
+    """The largest first digit of the rows of V (B, 32, n) as the kernels
+    split them (each row scaled by its own max-abs hi word)."""
+    from dqmc_tpu_torch.ops import df_qr_kernel as dk
+    planes, _ = dk._extract_planes(V, nm, 1)
+    return int(planes[0].max())
+
+
 def phase_mw_panels(torch, gen, report):
-    """#7 and #8 against their plain twins on the card (bit for bit), each
-    timed at the headline shape beside its twin, its bound and
-    torch.linalg.qr in float64 of the same panel (and of the whole
-    (16, 256, 256) matrix, printed)."""
+    """#7 and #8 against their plain twins on the card, bit for bit, on
+    every panel of panel_cases; each timed at PANEL_SHAPES in device time
+    beside its twin, its bound and torch.linalg.qr in float64 of the same
+    panel (and of the whole (16, 256, 256) matrix, printed)."""
     from dqmc_tpu_torch.ops import df_qr_kernel as dk, df32, tf32
     for name, nm, words in (("df_qr_panel", df32, 2),
                             ("tf_qr_panel", tf32, 3)):
         npl = nm.N_PLANES
-        for B, n in PANEL_SHAPES:
-            P = panel_inputs(torch, gen, nm, B, n)
+        tag = f"#{7 if words == 2 else 8} {name}"
+        for label, P in panel_cases(torch, gen, nm):
             Qk, Rk = dk.panel_cuda(P, words)
             Qp, Rp = dk.panel_plain(P, nm)
             torch.cuda.synchronize()
@@ -1923,16 +1999,33 @@ def phase_mw_panels(torch, gen, report):
                       for a, b in ((Qk, Qp), (Rk, Rp)))
             # orthonormality of the multiword Q rows, in float64
             q64 = nm.to_f64(Qk)
-            orth = float((q64 @ q64.mT - torch.eye(
-                32, dtype=torch.float64, device="cuda")).abs().max())
-            say(f"phase 14: #{7 if words == 2 else 8} {name} ({B}, 32, {n}): "
-                f"words differing from the twin {diff} (bit for bit: 0), "
-                f"max |d| {gap:.3e}, |Q Q^T - I| {orth:.3e}")
+            eye = torch.eye(32, dtype=torch.float64, device="cuda")
+            if label.startswith("zero"):
+                eye[[0, 9], [0, 9]] = 0.0
+            orth = float((q64 @ q64.mT - eye).abs().max())
+            say(f"phase 14: {tag} {label}: words differing from the twin "
+                f"{diff} (bit for bit: 0), max |d| {gap:.3e}, |Q Q^T - I| "
+                f"{orth:.3e}")
             if diff:
-                fail(f"{name} disagrees with its plain twin at ({B}, {n})")
+                fail(f"{name} disagrees with its plain twin on {label}")
+            if label.startswith("carries"):
+                dq = first_digit_max(Qk, nm)
+                dy = first_digit_max(P, nm)
+                say(f"phase 14: {tag} {label}: largest first digit of the "
+                    f"rows of P {dy}, of Q {dq} (both 128)")
+                if dq != 128 or dy != 128:
+                    fail(f"{name}: the carry panel took no carry")
+        for B, n in PANEL_SHAPES:
+            P = panel_inputs(torch, gen, nm, B, n)
+            ms = device_ms(lambda: dk.panel_cuda(P, words), 10)
             if (B, n) != PANEL_SHAPES[0]:
+                say(f"phase 14: {name} ({B}, 32, {n}): kernel {ms:.4f} ms "
+                    f"per panel (device time)")
                 continue
-            ms = cuda_ms(lambda: dk.panel_cuda(P, words), 5)
+            Qk, Rk = dk.panel_cuda(P, words)
+            Qp, Rp = dk.panel_plain(P, nm)
+            gap = max(float((nm.to_f64(a) - nm.to_f64(b)).abs().max())
+                      for a, b in ((Qk, Qp), (Rk, Rp)))
             plain_ms = cuda_ms(lambda: dk.panel_plain(P, nm), 1)
             A64 = nm.to_f64(P).mT.contiguous()
             lib_ms = cuda_ms(lambda: torch.linalg.qr(A64), 5)
@@ -1950,11 +2043,11 @@ def phase_mw_panels(torch, gen, report):
                    nbytes=4 * words * B * (2 * 32 * n + 32 * 32),
                    library_ms=lib_ms)
             r = report[name]
-            say(f"phase 14: {name} ({B}, 32, {n}): kernel {ms:.3f} ms per "
-                f"panel, twin {plain_ms:.1f} ms, torch.linalg.qr float64 of "
-                f"the panel {lib_ms:.3f} ms (of the whole ({B}, {n}, {n}): "
-                f"{full_ms:.3f} ms), bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']})")
+            say(f"phase 14: {name} ({B}, 32, {n}): kernel {ms:.4f} ms per "
+                f"panel (device time), twin {plain_ms:.1f} ms, "
+                f"torch.linalg.qr float64 of the panel {lib_ms:.3f} ms (of "
+                f"the whole ({B}, {n}, {n}): {full_ms:.3f} ms), bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
 
 
 HEADLINE_DF32 = """
@@ -2059,12 +2152,13 @@ def _production_params(extra: str = ""):
     return Parameters.from_string(params.dumps() + extra)
 
 
-def phase_tier_split(torch):
+def phase_tier_split(torch, profile=False):
     """examples/tpu_production's tier split: the fused float32 engine
     (K2 + K1) samples, every measurement rebuilds G at tf32 (#8 in every
     fold, stride 2x the engine's), n_stab = auto; 4 + 1x2 pairs.  The tier
-    G of the final fields against the native float64 rebuild; then a short
-    measure_precision = df32 run of the same chain (#7 through the
+    G of the final fields against the native float64 rebuild (with
+    ``profile``, then one tier measurement under torch.profiler); then a
+    short measure_precision = df32 run of the same chain (#7 through the
     tier)."""
     from dqmc_tpu_torch.engine.parity import measurement_greens_fn
     from dqmc_tpu_torch.engine.state import EngineConfig
@@ -2086,6 +2180,13 @@ def phase_tier_split(torch):
         f"{gap:.3e} (< 1e-9)")
     if not gap < 1e-9:
         fail("tf32 tier G disagrees with the float64 rebuild")
+    if profile:
+        # where one tier measurement's time goes (every kernel is warm; the
+        # records of its ~1.3 million device operations take minutes to
+        # aggregate, so only scripts/tier_profile.py asks for it)
+        _profiled(torch, "tf32 tier, one measurement of the 16 walkers",
+                  lambda s: (fn(s), s)[1], summary.states, 1,
+                  phase="phase 16", cpu=False, unit="measurement")
     run_params(torch, _production_params(
         "[simulation]\nmeasure_precision = df32\nn_therms = 0\nn_sweeps = 1"
         "\n").dumps(), "tpu_production with measure_precision = df32, 0 + "

@@ -99,6 +99,34 @@ in one directory:
   the walker's own SMs (``PROBE_SUB_SRC``: a copy of the package's slice
   body with R <= 64 and the flush by owner), alternating.
 
+The multiword panel kernels #7 (df32) and #8 (tf32) before their
+tensor-core redesign, given that commit's ``mw_qr_panel.cu`` (built, as
+the package builds it, with ``--fmad=false``):
+
+    mkdir old && git show <commit>:dqmc_tpu_torch/csrc/mw_qr_panel.cu \
+        > old/mw_qr_panel.cu
+    python3 scripts/seed_split.py panels --source old/mw_qr_panel.cu \
+        [--parts split,bits,times,probe]
+
+- ``split``: device time per panel of the seed and of builds without one
+  stage each -- the E dots (the int8 products against the finished
+  columns' planes), the update's class sums, the multiword residual chain
+  of every digit extraction, the norm (its digits, products and
+  reduction; Q scaled by 1), and the recombinations (E over the y planes,
+  c over the q planes, the update's delta) -- at (16, 32, 256),
+  (16, 32, 64) and (4, 32, 512), both word counts;
+- ``bits``: the seed against the checkout on every panel of
+  ``chip_smoke.panel_cases`` (graded panels at n = 256, 64, 512 and 32,
+  zero rows, the carry planes of y, q and e), both word counts: every
+  word of Q and R equal?
+- ``times``: both, alternating (seed, checkout, checkout, seed) in
+  device time at the shapes of ``split``, beside ``torch.linalg.qr`` in
+  float64 of the same panel (CUDA events);
+- ``probe`` (not in the default parts): the checkout's kernel built with
+  ``clock64()`` stamps on thread 0 of block 0 between its phases
+  (``PANEL_PROBES``, which match the checkout's text only): cycles per
+  column by phase at the shapes of ``split``.
+
 The stubs match the seed's text only, and the script stops on any other.
 Needs a CUDA card and nvcc; prints one line per measurement.
 """
@@ -114,7 +142,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-from chip_smoke import LOOP_CASES, cuda_ms, device_ms  # noqa: E402
+from chip_smoke import (LOOP_CASES, PANEL_SHAPES, cuda_ms,  # noqa: E402
+                        device_ms, panel_cases, panel_inputs)
 
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared"]
@@ -135,6 +164,86 @@ SITE_STUBS = {
                   "continue;\n"),
 }
 SPLIT_SHAPES = ((16, 256), (16, 448))
+# the panel kernels' stages: (text in the source, its replacement), one
+# pair or a tuple of pairs per build
+PANEL_STUBS = {
+    "E dots": ("for (int s = 0; s < n4; ++s) {",
+               "for (int s = 0; s < 0; ++s) {"),
+    "update class sums": ("for (int u = 0; u < t; ++u) {",
+                          "for (int u = 0; u < 0; ++u) {"),
+    "digit residual chains": (
+        "r = sub(r, from_f32<T>(fmul(q, pow2f(-7 * (i + 1)))));", ";"),
+    "norm": ("    // norm^2 from y's digit planes: exact class products\n"
+             "    {",
+             "    if (tid < 8) scal[tid] = tid == 1 || tid == W + 1;\n"
+             "    __syncthreads();\n    if (t < 0) {"),
+    # every integer term still feeds the result (a float32 sum of the
+    # integers), so no product above it becomes dead code
+    "recombinations": (
+        ("// max over the block; every thread returns the same value",
+         "template <int NP, typename T>\n__device__ T isum(const int* a) {\n"
+         "  int s = 0;\n  for (int i = 0; i < NP; ++i) s += a[i];\n"
+         "  return from_f32<T>(__int2float_rn(s));\n}\n\n"
+         "// max over the block; every thread returns the same value"),
+        ("store(ew, ew_w, pj, wsum<NP, T>(acc, -7));",
+         "store(ew, ew_w, pj, isum<NP, T>(acc));"),
+        ("c = add(c, scale(ld<T>(ew, ew_w, tid * NP + j), "
+         "pow2f(-7 * (j + 1))));",
+         "c.hi = fadd(c.hi, ew[tid * NP + j]);"),
+        ("const T delta = wsum<NP, T>(cls, -14);",
+         "const T delta = isum<NP, T>(cls);")),
+}
+PANEL_FLAGS = ("--fmad=false",)
+# the checkout's phases for a clock64() probe: (text before, text after,
+# the phase that ends between them); thread 0 of block 0 adds the cycles
+# since the previous stamp to the phase's sum, and writes the sums over
+# R's first 128 bytes when the panel is done
+PANEL_PROBES = (
+    ("\n      pow2_scales(block_max(m, red, buf), s_y, inv_sy);\n", "",
+     "y load, block max of y"),
+    ("ys);\n        }\n      __syncthreads();\n", "", "y digits"),
+    ("      __syncthreads();\n", "\n      // E[u][j] = sum_i", "E dots"),
+    ("      __syncthreads();\n", "\n      // every warp, lane u < t",
+     "E recombination"),
+    ("de[0] == 128);\n      __syncwarp();\n", "", "c, e, e's digits"),
+    ("        __syncwarp();\n      }\n", "    }\n\n    // norm^2",
+     "update: products, recombination, y -= "),
+    ("\n    pow2_scales(block_max(m, red, buf), s_y, inv_sy);\n", "",
+     "norm: block max of y"),
+    ("if (lane == 0) ncls[warp * NP + w] = v;\n    }\n    __syncthreads();\n",
+     "", "norm: digits, products, block sum"),
+    ("zero ? from_f32<T>(1.0f) : nrm);\n", "",
+     "norm: recombination, sqrt, division"),
+    ("    pow2_scales(block_max(m, red, buf), s_q, inv_sq);\n", "",
+     "q = y / |y|, block max of q"),
+    ("    if (lane == t) sq_u = s_q;\n", "", "q digits, Q and R stores"),
+)
+
+
+def probed(text: str) -> str:
+    """The checkout's kernel with the PANEL_PROBES stamps."""
+    stamp = ("    if (threadIdx.x == 0 && blockIdx.x == 0) {{ const long long "
+             "c_ = clock64(); prof_[{k}] += c_ - prof_t_; prof_t_ = c_; }}\n")
+    for k, (before, after, _) in enumerate(PANEL_PROBES):
+        if text.count(before + after) != 1:
+            sys.exit(f"probe {k}: anchor matches {text.count(before + after)}"
+                     f" times")
+        text = text.replace(before + after,
+                            before + stamp.format(k=k) + after)
+    head = "  const int b = blockIdx.x, tid = threadIdx.x;\n"
+    tail = "  }\n}\n\ntemplate <int W, int NP>\nint launch_panel"
+    for anchor in (head, tail):
+        if text.count(anchor) != 1:
+            sys.exit("probe: kernel anchors not found")
+    text = text.replace(head, head + (
+        "  __shared__ long long prof_[16];\n"
+        "  if (tid < 16) prof_[tid] = 0;\n"
+        "  long long prof_t_ = clock64();\n"))
+    return text.replace(tail, (
+        "  }\n  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+        "    for (int i = 0; i < 16; ++i)\n"
+        "      reinterpret_cast<long long*>(Ro)[i] = prof_[i];\n}\n\n"
+        "template <int W, int NP>\nint launch_panel"))
 # (W, ns, k, flavors, float type) of the bit comparison: every shape both
 # designs take among the engine's (examples/basic, the repulsive preset,
 # the headline and the largest ones the seed takes)
@@ -204,18 +313,21 @@ def card() -> str:
     return smi.stdout.strip()
 
 
-def nvcc_all(jobs: dict, tmp: Path, include: Path | None = None) -> dict:
+def nvcc_all(jobs: dict, tmp: Path, include: Path | None = None,
+             flags: tuple = ()) -> dict:
     """Build each {name: source text} into its own shared library, one nvcc
-    each, in parallel; headers are looked up beside ``include`` (the seed)
-    and then in the checkout's csrc/.  Returns {name: loaded library}."""
+    each (with the extra ``flags``), in parallel; headers are looked up
+    beside ``include`` (the seed) and then in the checkout's csrc/.
+    Returns {name: loaded library}."""
     cmds, libs = [], {}
     dirs = ([include.parent] if include else []) + [REPO / "dqmc_tpu_torch"
                                                     / "csrc"]
     for name, body in jobs.items():
-        cu = tmp / f"{name}.cu"
+        stem = name.replace(" ", "_")
+        cu = tmp / f"{stem}.cu"
         cu.write_text(body)
-        libs[name] = tmp / f"lib{name}.so"
-        cmds.append(NVCC + [f"-I{d}" for d in dirs]
+        libs[name] = tmp / f"lib{stem}.so"
+        cmds.append(NVCC + list(flags) + [f"-I{d}" for d in dirs]
                     + ["-o", str(libs[name]), str(cu)])
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -230,10 +342,14 @@ def nvcc_all(jobs: dict, tmp: Path, include: Path | None = None) -> dict:
 def stubbed(src: Path, stubs: dict) -> dict:
     text = src.read_text()
     variants = {"full": text}
-    for name, (old, new) in stubs.items():
-        if text.count(old) != 1:
-            sys.exit(f"{src}: stub {name!r} matches {text.count(old)} times")
-        variants[name] = text.replace(old, new)
+    for name, pairs in stubs.items():
+        body = text
+        for old, new in (pairs if isinstance(pairs[0], tuple) else (pairs,)):
+            if body.count(old) != 1:
+                sys.exit(f"{src}: stub {name!r} matches {body.count(old)} "
+                         f"times")
+            body = body.replace(old, new)
+        variants[name] = body
     return variants
 
 
@@ -1178,18 +1294,133 @@ def submatrix_probes(torch, source, tmp) -> None:
                   t.items()), flush=True)
 
 
+def _panel_fn(lib, words):
+    return _bind(lib, "dqmc_df_qr_panel" if words == 2 else
+                 "dqmc_tf_qr_panel", [_VP] * 3 + [_I] * 2 + [_VP])
+
+
+def _panel_call(torch, fn, P):
+    """(q, r) of one call of a panel entry point on the multiword panel P
+    (B, 32, n): the words stacked outermost, as ops/df_qr_kernel.py
+    passes them."""
+    B, _, n = P.hi.shape
+    p = torch.stack(tuple(P)).contiguous()
+    q = torch.empty_like(p)
+    r = torch.empty((len(P), B, 32, 32), dtype=p.dtype, device=p.device)
+    _check(fn(_ptr(p), _ptr(q), _ptr(r), B, n, _stream()), "panel")
+    return q, r
+
+
+_PANEL_NM = ((2, "df32", "#7"), (3, "tf32", "#8"))
+
+
+def _nm(words):
+    from dqmc_tpu_torch.ops import df32, tf32
+    return df32 if words == 2 else tf32
+
+
+def panels_split(torch, source, tmp) -> None:
+    """Device time per panel of the seed and of its builds without one
+    stage each; the differences are the stages' shares."""
+    libs = nvcc_all(stubbed(source, PANEL_STUBS), tmp, source, PANEL_FLAGS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for words, tname, num in _PANEL_NM:
+        for B, n in PANEL_SHAPES:
+            P = panel_inputs(torch, gen, _nm(words), B, n)
+            fns = {name: _panel_fn(lib, words) for name, lib in libs.items()}
+            t = {name: device_ms(lambda: _panel_call(torch, fn, P), 10)
+                 for name, fn in fns.items()}
+            t["full"] = (t["full"] + device_ms(
+                lambda: _panel_call(torch, fns["full"], P), 10)) / 2
+            full = t["full"]
+            print(f"panels split {num} {tname} ({B}, 32, {n}), device ms "
+                  f"per panel: seed {full:.4f}; without " + ", ".join(
+                      f"{name} {ms:.4f} ({full - ms:+.4f}, "
+                      f"{100 * (full - ms) / full:.1f}%)"
+                      for name, ms in t.items() if name != "full"),
+                  flush=True)
+
+
+def panels_probe(torch, source, tmp) -> None:
+    """Cycles per column of each phase of the checkout's kernel (thread 0
+    of block 0, clock64(), a probe build), at the shapes of ``split``."""
+    lib = nvcc_all({"probe": probed(
+        (REPO / "dqmc_tpu_torch" / "csrc" / "mw_qr_panel.cu").read_text())},
+        tmp, None, PANEL_FLAGS)["probe"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for words, tname, num in _PANEL_NM:
+        for B, n in PANEL_SHAPES:
+            P = panel_inputs(torch, gen, _nm(words), B, n)
+            _panel_call(torch, _panel_fn(lib, words), P)
+            _, r = _panel_call(torch, _panel_fn(lib, words), P)
+            cyc = r[0, 0, 0, :32].contiguous().view(torch.int64).tolist()
+            total = sum(cyc[:len(PANEL_PROBES)])
+            print(f"panels probe {num} {tname} ({B}, 32, {n}), cycles per "
+                  f"column (thread 0, block 0): {total / 32:.0f}: " + ", ".join(
+                      f"{name} {c / 32:.0f} ({100 * c / total:.1f}%)"
+                      for (_, _, name), c in zip(PANEL_PROBES, cyc)),
+                  flush=True)
+
+
+def panels_bits(torch, source, tmp) -> None:
+    """The seed against the checkout on every panel of
+    chip_smoke.panel_cases, both word counts: Q and R bit for bit?"""
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source,
+                    PANEL_FLAGS)["seed"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for words, tname, num in _PANEL_NM:
+        for label, P in panel_cases(torch, gen, _nm(words)):
+            a = _panel_call(torch, _panel_fn(seed, words), P)
+            b = _panel_call(torch, _panel_fn(_checkout(), words), P)
+            torch.cuda.synchronize()
+            diff = [int((x != y).sum()) for x, y in zip(a, b)]
+            print(f"panels bits {num} {tname} {label}: words of Q, R "
+                  f"differing from the seed {diff[0]}, {diff[1]} "
+                  f"({'equal' if not any(diff) else 'DIFFER'})", flush=True)
+
+
+def panels_times(torch, source, tmp) -> None:
+    """The seed and the checkout alternating (seed, checkout, checkout,
+    seed), device time per panel, beside torch.linalg.qr in float64."""
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source,
+                    PANEL_FLAGS)["seed"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for words, tname, num in _PANEL_NM:
+        fns = {"seed": _panel_fn(seed, words),
+               "checkout": _panel_fn(_checkout(), words)}
+        for B, n in PANEL_SHAPES:
+            nm = _nm(words)
+            P = panel_inputs(torch, gen, nm, B, n)
+            t = {"seed": [], "checkout": []}
+            for name in ("seed", "checkout", "checkout", "seed"):
+                t[name].append(device_ms(
+                    lambda: _panel_call(torch, fns[name], P), 10))
+            A64 = nm.to_f64(P).mT.contiguous()
+            lib_ms = cuda_ms(lambda: torch.linalg.qr(A64), 5)
+            print(f"panels times {num} {tname} ({B}, 32, {n}), device ms per "
+                  f"panel: seed {t['seed'][0]:.4f} / {t['seed'][1]:.4f}, "
+                  f"checkout {t['checkout'][0]:.4f} / "
+                  f"{t['checkout'][1]:.4f}; torch.linalg.qr float64 of the "
+                  f"panel {lib_ms:.4f} (CUDA events)", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=("k1", "sites", "delayed",
-                                       "submatrix"))
+                                       "submatrix", "panels"))
     ap.add_argument("--source", required=True, type=Path,
                     help="the seed's cgs2_qr.cu (k1), fused_block.cu "
-                    "(sites), site_update.cu (delayed) or "
-                    "submatrix_update.cu (submatrix)")
+                    "(sites), site_update.cu (delayed), "
+                    "submatrix_update.cu (submatrix) or mw_qr_panel.cu "
+                    "(panels)")
     ap.add_argument("--parts", default="split,barriers,bits,times",
                     help="sites: which of split, barriers, bits, times; "
                     "delayed and submatrix: which of split, bits, times, "
-                    "probes")
+                    "probes; panels: which of split, bits, times, probe")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1198,6 +1429,15 @@ def main() -> None:
     if opts.kernel == "k1":
         return k1_split(opts)
     parts = opts.parts.split(",")
+    if opts.kernel == "panels":
+        with tempfile.TemporaryDirectory() as tmp:
+            for part, run in (("split", panels_split),
+                              ("bits", panels_bits),
+                              ("times", panels_times),
+                              ("probe", panels_probe)):
+                if part in parts:
+                    run(torch, opts.source, Path(tmp))
+        return
     if opts.kernel == "submatrix":
         with tempfile.TemporaryDirectory() as tmp:
             for part, run in (("split", submatrix_split),

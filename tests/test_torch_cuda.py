@@ -1,6 +1,6 @@
 """dqmc_tpu_torch's CUDA kernels (K1, K2 with its 2-flavor and submatrix
-site loops #2b and #2c, and the site updates #3, #4, #5, #6) against their
-plain twins, on the card.
+site loops #2b and #2c, the site updates #3, #4, #5, #6, and the multiword
+panel kernels #7, #8) against their plain twins, on the card.
 
 Marked ``cuda``; skips where torch.cuda.is_available() is false.  The
 repository's conftest imports jax, which the card machine need not have,
@@ -10,8 +10,14 @@ so run this module there without it:
         -m cuda tests/test_torch_cuda.py -q
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import panel_cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -266,7 +272,11 @@ def test_two_flavor_site_update_kernel_matches_twin_f64(gen, shared):
 @pytest.mark.parametrize("words", [2, 3])
 def test_mw_panel_kernels_match_twin(gen, words, n):
     """#7 (two words) and #8 (three) against their plain twin: every word
-    of Q and R bit for bit."""
+    of Q and R bit for bit, on a (4, 32, n) panel graded over e^+-4; then,
+    for n = 256, chip_smoke.py's graded panels at every shape phase 14
+    checks (n = 256, 64, 512 -- tf32's shared-memory ceiling -- and 32),
+    and for n = 64 its panels with exactly zero rows and with first digits
+    of 128 in y, q and e (the carry planes)."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.ops import df32, df_qr_kernel, tf32
     nm = df32 if words == 2 else tf32
@@ -275,13 +285,17 @@ def test_mw_panel_kernels_match_twin(gen, words, n):
                     * torch.exp(torch.linspace(4, -4, 32, device="cuda",
                                                dtype=torch.float64))[:, None])
     name = "df_qr_panel" if words == 2 else "tf_qr_panel"
-    before = _cuda.LAUNCHES[name]
-    got = df_qr_kernel.panel_cuda(P, words)
-    assert _cuda.LAUNCHES[name] == before + 1
-    want = df_qr_kernel.panel_plain(P, nm)
-    for g, w in zip(got, want):
-        for a, b in zip(g, w):
-            assert torch.equal(a, b)
+    cases = [(f"graded (4, 32, {n})", P)] + [
+        (label, Pc) for label, Pc in panel_cases(torch, gen, nm)
+        if label.startswith("graded") == (n == 256)]
+    for label, Pc in cases:
+        before = _cuda.LAUNCHES[name]
+        got = df_qr_kernel.panel_cuda(Pc, words)
+        assert _cuda.LAUNCHES[name] == before + 1
+        want = df_qr_kernel.panel_plain(Pc, nm)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b), label
 
 
 @pytest.mark.parametrize("words", [2, 3])

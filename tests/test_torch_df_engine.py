@@ -39,6 +39,7 @@ from dqmc_tpu_torch.ops import df32 as tdf
 from dqmc_tpu_torch.ops import df_linalg as tdl
 from dqmc_tpu_torch.ops import tf32 as ttf
 from torch_port_util import (  # noqa: F401
+    computed_once,
     jax_per_slice_streams,
     release_jax_programs,
     to_np,
@@ -64,27 +65,34 @@ def _rel(a, b):
 # ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def chain():
+def chain(request, tmp_path_factory):
     """Both packages' df32 LDR chain over the blocks of one beta=4 field
     configuration (4x4, nt=16, two blocks of 8), from the same multiword
     block products (the tf32 chain is held through the tier below)."""
     nm = "df32"
     jm, tm = NMS[nm]
-    model = AttractiveHubbard.build(square_lattice(4, 4), U=4.0, mu=-0.1,
-                                    nt=16, dtype=jnp.float64, **KW)
-    fields = np.random.default_rng(2).integers(0, 4, (16, 16))
-    expK = jm.from_f64(model.expK)
-    blocks = []
-    for l0 in (0, 8):
-        B = jm.df(jnp.eye(16, dtype=jnp.float32))
-        for l in range(l0, l0 + 8):
-            B = jm.matmul(jpar._slice_B(model, expK, jnp.asarray(fields[l]),
-                                        jm), B)
-        blocks.append(jdl.transpose(B))
-    j1 = jdl.to_ldr(blocks[1], nm=jm)
-    j2 = jdl.mat_mul_ldr(blocks[0], j1, nm=jm)
-    eye = jm.df(jnp.eye(16, dtype=jnp.float32))
-    jG = jdl.inv_one_plus_ldr_dag(jdl.to_ldr(eye, nm=jm), j2, nm=jm)
+
+    def jax_chain():
+        model = AttractiveHubbard.build(square_lattice(4, 4), U=4.0,
+                                        mu=-0.1, nt=16, dtype=jnp.float64,
+                                        **KW)
+        fields = np.random.default_rng(2).integers(0, 4, (16, 16))
+        expK = jm.from_f64(model.expK)
+        blocks = []
+        for l0 in (0, 8):
+            B = jm.df(jnp.eye(16, dtype=jnp.float32))
+            for l in range(l0, l0 + 8):
+                B = jm.matmul(jpar._slice_B(model, expK,
+                                            jnp.asarray(fields[l]), jm), B)
+            blocks.append(jdl.transpose(B))
+        j1 = jdl.to_ldr(blocks[1], nm=jm)
+        j2 = jdl.mat_mul_ldr(blocks[0], j1, nm=jm)
+        eye = jm.df(jnp.eye(16, dtype=jnp.float32))
+        jG = jdl.inv_one_plus_ldr_dag(jdl.to_ldr(eye, nm=jm), j2, nm=jm)
+        return blocks, j1, j2, jG
+
+    blocks, j1, j2, jG = computed_once(request, tmp_path_factory,
+                                       "df_engine_chain", jax_chain)
     tb = [torch_mw(b) for b in blocks]
     t1 = tdl.to_ldr(tb[1], nm=tm)
     t2 = tdl.mat_mul_ldr(tb[0], torch_ldr_df(j1), nm=tm)
@@ -140,15 +148,28 @@ def _jax_df_states(t, keys):
         err_count=j(t.err_count))
 
 
+def _walker(states, w):
+    return jax.tree.map(lambda x: x[w], states)
+
+
+def _stacked(states):
+    return jax.tree.map(lambda *x: jnp.stack(x), *states)
+
+
 @pytest.fixture(scope="module", params=[1, 2], ids=["1flavor", "2flavor"])
-def engine(request):
+def engine(request, tmp_path_factory):
     """Walkers from per-walker keys, each package's sweep pair from the
     same state on the streams JAX's sweep draws, and the port's rebuild of
     the initial fields.  One flavor starts from JAX's init_state_df (and
     holds the port's rebuild to it); two flavors draw the same fields
     (hsfield.init_fields on init_state_df's key split) and start both
     packages from the port's rebuild, which is held to the native float64
-    rebuild instead (one JAX compile fewer)."""
+    rebuild instead (one JAX compile fewer).  JAX runs each walker through
+    its own jitted functions and the results are stacked: the same bits as
+    a vmap over the walkers in every compared field, traced without the
+    batching rules; and the JAX results are computed once per run
+    (computed_once), not once per xdist worker that takes one of these
+    tests."""
     nfl = request.param
     cls = AttractiveHubbard if nfl == 1 else RepulsiveHubbard
     kw = dict(U=4.0, mu=-0.1 if nfl == 1 else 0.0, t=1.0, beta=2.0, nt=NT)
@@ -160,7 +181,9 @@ def engine(request):
     taux = tds.df_aux_build(lat, n_flavor=nfl, **kw)
     tcfg = TEngineConfig(nt=NT, n_stab=N_STAB)
     if nfl == 1:
-        init = jax.vmap(lambda k: jds.init_state_df(m32, aux, cfg, k))(keys)
+        init = computed_once(request, tmp_path_factory, "df_engine_init",
+                             lambda: _stacked([jds.init_state_df(
+                                 m32, aux, cfg, k) for k in keys]))
         tinit = torch_df_states(init)
         rebuilt = tds.rebuild_stack_df(taux, tcfg, tinit.fields)
     else:
@@ -178,8 +201,10 @@ def engine(request):
         init = _jax_df_states(tinit, split[:, 1])
     fwd, k2 = jax_per_slice_streams(init.key, NT, 16, jnp.float32, True)
     bwd, _ = jax_per_slice_streams(k2, NT, 16, jnp.float32, False)
-    want = jax.jit(jax.vmap(lambda s: jds.df_sweep_pair(m32, aux, cfg, s)))(
-        init)
+    want = computed_once(request, tmp_path_factory, f"df_engine_{nfl}",
+                         lambda: _stacked([jds.df_sweep_pair(
+                             m32, aux, cfg, _walker(init, w))
+                             for w in range(W)]))
     got = tds.df_sweep_pair(torch_model(m32), taux, tcfg, tinit,
                             streams=(fwd, bwd))
     return aux, taux, init, rebuilt, want, got

@@ -30,7 +30,10 @@ from dqmc_tpu_torch.measure.context import make_context as tctx
 from dqmc_tpu_torch.measure.manager import MeasurementManager as TManager
 from dqmc_tpu_torch.measure.transforms import r_to_k, site_to_r, \
     site_to_r_batched
-from torch_port_util import (release_jax_programs, to_np)  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    release_jax_programs,
+    shared_dir,
+    to_np)
 
 torch.set_num_threads(1)
 
@@ -162,20 +165,30 @@ def _layout(path):
     return out
 
 
+def _both_runs(request, tmp_path_factory, key, params):
+    """The JAX package's run_simulation and the port's CLI on the same
+    parameters, once per test run (shared_dir): (JAX dir, port dir, the
+    CLI's stdout)."""
+    def make(root):
+        from dqmc_tpu.run import run_simulation
+        run_simulation(Parameters.from_string(params),
+                       out_dir=str(root / "jax" / "results"), verbose=False)
+        tdir = root / "torch"
+        tdir.mkdir(exist_ok=True)
+        (tdir / "parameters.in").write_text(params)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        res = subprocess.run([sys.executable, "-m", "dqmc_tpu_torch",
+                              "--device", "cpu"], cwd=tdir, env=env,
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr
+        (root / "stdout.txt").write_text(res.stdout)
+    root = shared_dir(request, tmp_path_factory, key, make)
+    return root / "jax", root / "torch", (root / "stdout.txt").read_text()
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    from dqmc_tpu.run import run_simulation
-    jdir = tmp_path_factory.mktemp("jax_run")
-    run_simulation(Parameters.from_string(_PARAMS),
-                   out_dir=str(jdir / "results"), verbose=False)
-    tdir = tmp_path_factory.mktemp("torch_run")
-    (tdir / "parameters.in").write_text(_PARAMS)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-m", "dqmc_tpu_torch",
-                          "--device", "cpu"], cwd=tdir, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr
-    return jdir, tdir, res.stdout
+def runs(request, tmp_path_factory):
+    return _both_runs(request, tmp_path_factory, "measure_runs", _PARAMS)
 
 
 def test_cli_output_layout_matches_jax(runs):
@@ -201,11 +214,13 @@ def test_cli_output_values(runs):
                                          "submatrix"])
 def test_cli_slice_engine_layout_matches_jax(runs, tmp_path, site_update):
     """engine = slice with each site update writes the JAX package's HDF5
-    layout (the JAX run above takes its per-slice engine on the CPU)."""
+    layout (the JAX run above takes its per-slice engine on the CPU); one
+    thermalization and one sweep per bin (the layout does not depend on
+    the sweep counts; the per-slice twins are slow on the CPU)."""
     jdir = runs[0]
     params = Parameters.from_string(_PARAMS)
     for key, value in (("engine", "slice"), ("site_update", site_update),
-                       ("delay_rank", 4)):
+                       ("delay_rank", 4), ("n_therms", 1), ("n_sweeps", 1)):
         params.set("simulation", key, value)
     (tmp_path / "parameters.in").write_text(params.dumps())
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -257,19 +272,9 @@ n_walkers = 2
 
 
 @pytest.fixture(scope="module")
-def repulsive_runs(tmp_path_factory):
-    from dqmc_tpu.run import run_simulation
-    jdir = tmp_path_factory.mktemp("jax_repulsive")
-    run_simulation(Parameters.from_string(_REPULSIVE),
-                   out_dir=str(jdir / "results"), verbose=False)
-    tdir = tmp_path_factory.mktemp("torch_repulsive")
-    (tdir / "parameters.in").write_text(_REPULSIVE)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-m", "dqmc_tpu_torch",
-                          "--device", "cpu"], cwd=tdir, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr
-    return jdir, tdir, res.stdout
+def repulsive_runs(request, tmp_path_factory):
+    return _both_runs(request, tmp_path_factory, "measure_repulsive_runs",
+                      _REPULSIVE)
 
 
 def test_repulsive_cli_output_layout_matches_jax(repulsive_runs):

@@ -1,10 +1,15 @@
 """Helpers for the tests that hold dqmc_tpu_torch against dqmc_tpu: carry a
-JAX model, JAX walker states and JAX random streams across as numpy."""
+JAX model, JAX walker states and JAX random streams across as numpy, and
+compute a module's JAX reference once per run across xdist workers."""
+
+import pickle
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 from dqmc_tpu.engine.sweep import draw_slice_randoms
 from dqmc_tpu_torch.engine.state import model_from_numpy, \
@@ -34,6 +39,38 @@ def release_jax_programs():
     if _n_memory_maps() > _MAPS_HIGH_WATER:
         jax.clear_caches()
     yield
+
+
+def shared_dir(request, tmp_path_factory, key, make):
+    """A directory that make(path) fills, made once per test run.
+
+    pytest-xdist runs a module's tests on whichever worker is free, so a
+    module-scoped fixture runs once on every worker that takes one of its
+    tests.  Under xdist the directory lives in the run's shared temporary
+    directory: the first worker fills it under a lock, and a worker that
+    asks later waits for the lock and finds it done."""
+    if not hasattr(request.config, "workerinput"):
+        path = tmp_path_factory.mktemp(key)
+        make(path)
+        return path
+    path = tmp_path_factory.getbasetemp().parent / key
+    with FileLock(f"{path}.lock"):
+        if not (path / ".done").is_file():
+            path.mkdir(exist_ok=True)
+            make(path)
+            (path / ".done").touch()
+    return path
+
+
+def computed_once(request, tmp_path_factory, key, compute):
+    """The JAX arrays of compute() (a pytree), computed once per test run
+    (shared_dir; kept as numpy leaves, pickled)."""
+    def make(path):
+        value = jax.tree.map(np.asarray, compute())
+        (path / "value.pkl").write_bytes(pickle.dumps(value))
+    path = shared_dir(request, tmp_path_factory, key, make)
+    return jax.tree.map(jnp.asarray,
+                        pickle.loads((path / "value.pkl").read_bytes()))
 
 
 def torch_model(model):
