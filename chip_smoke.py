@@ -38,8 +38,8 @@ non-zero):
 5. the headline shape (16x16, beta=8, nt=160, n_stab=5, W=16, float32) for
    three sweep pairs, printing walker-sweep-pairs/s, then one more pair
    under torch.profiler (device time by kernel, idle share);
-6. the per-slice engine's site-update kernels (#3 delayed and #5
-   submatrix in both order modes, #6 rank-1) against their twins, one slice
+6. the per-slice engine's site-update kernels (#3 delayed, #5 submatrix
+   and #6 rank-1, each in both order modes) against their twins, one slice
    each, at (W=4, ns=36, k=4), (16, 256, 32) and the stretch shape (W=4,
    ns=1024, k=32), and #3 and #5 per walker at rank 32 (groups of 32 + 4
    at ns = 36); #5 also gives the same bits on a second call, rejects and
@@ -47,13 +47,17 @@ non-zero):
    copies of the kernels' cluster and shared-memory budgets against the
    library's; each kernel timed alone at the stretch shape (#3's slice,
    and #5's group kernel and flush over a slice, in device time, the flush
-   beside torch.baddbmm in device time), and #6 at examples/basic's
-   (W=4, ns=36) in device time;
+   beside torch.baddbmm in device time), and #6 at (W=4, ns=36), (16, 256)
+   and (4, 1024) in both float types in device time, each beside its
+   bound and the parent's time;
 7. the stretch configuration (32x32, beta=16, nt=320, n_stab=5, U=4, W=4,
-   float32) through run_simulation, with the default site update (#3) and
-   with site_update = submatrix (#5), one pair each;
+   float32) through run_simulation, with the default site update (#3),
+   with site_update = submatrix (#5) and with site_update = scan (#6), one
+   pair each, then one more scan pair under torch.profiler (device busy
+   time per pair);
 8. examples/basic through the per-slice engine with site_update = scan
-   (#6) and delayed (#3);
+   (#6) and delayed (#3), then five scan pairs under torch.profiler
+   (device busy time per pair);
 9. under torch.profiler, device time by kernel and the device's idle
    share: the first stretch sweep pair with the default site update (#3),
    and three pairs of the repulsive preset on each engine;
@@ -66,9 +70,10 @@ non-zero):
     slices) and (16, 256, 5) in both float types; the #2b site loop alone
     in float64 up to ns = 512; #2c (the fused block's submatrix scheme) at
     (4, 36) and (16, 256) in both float types and at 22x22 and 16x32
-    (ns = 512) in float64, its site loop alone the same bits on a second
-    call and timed in device time; doped cases of #4 and #2b (U=6,
-    mu=-0.8) must flip a sign; each new kernel timed alone, and the
+    (ns = 512) in float64, and on one CTA per walker at 4x4 (k = 4 and 16,
+    float64) and 5x5 (k = 5 and 25, both float types), its site loop alone
+    the same bits on a second call and timed in device time; doped cases
+    of #4 and #2b (U=6, mu=-0.8) must flip a sign; each new kernel timed alone, and the
     fused site loops with one and two flavors, 1 and 16 walkers, both
     float types, up to ns = 512;
 11. the repulsive preset (8x8, beta=4, nt=80, n_stab=5, U=4, mu=0, W=32,
@@ -135,6 +140,7 @@ SITE_SHAPES_2F = ((4, 6, 4), (32, 8, 32), (4, 32, 32))
 # the card's peaks (NVIDIA H100 SXM data sheet): FP32 outside the tensor
 # cores, int8 in the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 PEAK_INT8 = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -145,22 +151,25 @@ SELFCHECK_SEEDS = (42, 1, 2, 3, 4, 5, 6, 7)
 TOTALS = Counter()
 
 
-def bound(ops: float, nbytes: float, ops_int8: float = 0.0):
+def bound(ops: float, nbytes: float, ops_int8: float = 0.0,
+          ops_f64: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for ops
-    float32 operations, ops_int8 int8 operations and nbytes of traffic
-    (each input read once, each output written once)."""
-    t_ops = ops / PEAK_F32 + ops_int8 / PEAK_INT8
+    float32 operations, ops_int8 int8 operations, ops_f64 float64
+    operations and nbytes of traffic (each input read once, each output
+    written once)."""
+    t_ops = ops / PEAK_F32 + ops_int8 / PEAK_INT8 + ops_f64 / PEAK_F64
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def record(report, name, *, max_abs_err, ms, plain_ms, ops, nbytes,
-           library_ms=None, ops_int8=0.0, shape=None, main=True):
+           library_ms=None, ops_int8=0.0, ops_f64=0.0, shape=None,
+           main=True):
     """Set a kernel's entry of the ``kernels`` line.  With ``shape``, the
     numbers are also kept under the entry's ``shapes`` list, and only a
     ``main`` shape sets the entry's own keys."""
-    bound_ms, bound_by = bound(ops, nbytes, ops_int8)
+    bound_ms, bound_by = bound(ops, nbytes, ops_int8, ops_f64)
     entry = dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     old = report.get(name, {})
@@ -744,32 +753,54 @@ def phase_headline(torch, card):
     headline_pairs(torch, card, "phase 5")
 
 
-def time_rank1_basic(torch, gen, tk, report):
-    """#6 alone at the shape examples/basic launches it (site_update =
-    scan: W = 4 walkers of ns = 36, one launch per slice), in device time
-    beside its plain piece and its bound; kept under the entry's
-    ``shapes``."""
-    W, L, _ = SITE_SHAPES[0]
-    n = L * L
-    dt = torch.float32
-    G, fields, orders, props, us, g, alpha = slice_inputs(torch, gen, W, L,
-                                                          dt)
-    order = orders.to(torch.int32).contiguous()
-    _, gb, delta = tk.visit_factors(g, alpha, fields, orders, props, dt)
-    acc = torch.empty((W, n), dtype=dt, device="cuda")
-    row = _per_walker_rows(torch, tk.KERNELS, tk.PLAIN, G[:, 0].contiguous(),
-                           (acc, order, gb.contiguous(), delta.contiguous(),
-                            us), W, n)["rank1_sites"]
-    kern, plain, _, ops, nbytes, _ = row
-    ms = device_ms(kern, 20)
-    plain_ms = cuda_ms(plain, 1)
-    record(report, "rank1_sites", max_abs_err=None, ms=ms, plain_ms=plain_ms,
-           ops=ops, nbytes=nbytes, shape=(W, n), main=False)
-    b = report["rank1_sites"]["shapes"][-1]
-    say(f"phase 6: rank1_sites f32 W={W} ns={n} (examples/basic, site_update"
-        f" = scan), one launch: kernel {ms:.4f} ms (device time, with a "
-        f"copy of G), plain {plain_ms:.3f} ms, {int(acc.sum())} of {W * n} "
-        f"accepted, bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+# #6's timed shapes (W, L): examples/basic (site_update = scan), the
+# headline's view (16, 16 x 16) and the stretch (4, 32 x 32)
+RANK1_SHAPES = ((4, 6), (16, 16), (4, 32))
+# the parent's device ms per launch (one CTA per walker, G in global
+# memory; scripts/seed_split.py rank1 --parts times, PERF.md)
+RANK1_PARENT_MS = {(4, 36, "float32"): "0.0920-0.0927",
+                   (16, 256, "float32"): "11.555-11.567",
+                   (4, 1024, "float32"): "199.98-201.40",
+                   (4, 36, "float64"): "0.0922-0.0926",
+                   (16, 256, "float64"): "12.113-12.114",
+                   (4, 1024, "float64"): "290.32-290.86"}
+
+
+def time_rank1(torch, gen, tk, report, slice_err):
+    """#6 alone at RANK1_SHAPES in both float types (per-walker orders, one
+    launch per slice), in device time with the copy of G the call makes,
+    beside the parent's time, its plain piece and its bound; kept under
+    the entry's ``shapes``, the stretch in float32 as the entry's own."""
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        for W, L in RANK1_SHAPES:
+            n = L * L
+            G, fields, orders, props, us, g, alpha = slice_inputs(
+                torch, gen, W, L, dt)
+            order = orders.to(torch.int32).contiguous()
+            _, gb, delta = tk.visit_factors(g, alpha, fields, orders, props,
+                                            dt)
+            acc = torch.empty((W, n), dtype=dt, device="cuda")
+            kern, plain, _, ops, nbytes, _ = _per_walker_rows(
+                torch, tk.KERNELS, tk.PLAIN, G[:, 0].contiguous(),
+                (acc, order, gb.contiguous(), delta.contiguous(), us), W,
+                n)["rank1_sites"]
+            n_acc = int(acc.sum())
+            ms = device_ms(kern, 2 if n > 512 else 20)
+            plain_ms = cuda_ms(plain, 1)
+            main = (n, dt) == (SITE_SHAPES[-1][1] ** 2, torch.float32)
+            f64 = dt == torch.float64
+            record(report, "rank1_sites",
+                   max_abs_err=slice_err["#6 per-walker"] if main else None,
+                   ms=ms, plain_ms=plain_ms, ops=0.0 if f64 else ops,
+                   ops_f64=ops if f64 else 0.0, nbytes=nbytes,
+                   shape=(W, n, name), main=main)
+            b = report["rank1_sites"]["shapes"][-1]
+            say(f"phase 6: rank1_sites {name} W={W} ns={n}, one launch: "
+                f"kernel {ms:.4f} ms (device time, with a copy of G), "
+                f"parent {RANK1_PARENT_MS[(W, n, name)]} ms (PERF.md), "
+                f"plain {plain_ms:.3f} ms, {n_acc} of {W * n} accepted, "
+                f"bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
 
 
 def slice_inputs(torch, gen, W, L, dtype):
@@ -810,6 +841,7 @@ SITE_CASES = (  # (label, wrapper, shared order, rank keyword, fixed rank)
      None),
     ("#5 per-walker k=32", "metropolis_slice_update_submatrix", False,
      "k_sub", 32),
+    ("#6 shared", "metropolis_slice_update", True, None, None),
     ("#6 per-walker", "metropolis_slice_update", False, None, None),
 )
 
@@ -1025,15 +1057,17 @@ def _shared_order_rows(torch, K, P, G3, args, W, n, k):
 
 
 def _per_walker_rows(torch, K, P, G3, args, W, n):
-    """The same for #6 (a whole slice, each walker its own order)."""
+    """The same for #6 (a whole slice, each walker its own order): 2 n^2
+    operations per accepted visit; G read and written once, the order, gb,
+    delta and us read and the flags written once."""
     acc, order, gb, delta, us = args
     K.rank1(G3.clone(), acc, order, gb, delta, us)
     n_acc = int(acc.sum())
     return {"rank1_sites": (
         lambda: K.rank1(G3.clone(), acc, order, gb, delta, us),
         lambda: P.rank1(G3.clone(), acc.clone(), order, gb, delta, us),
-        None, 2 * n * n * n_acc, 4 * W * (2 * n * n + 5 * n),
-        "#6 per-walker")}
+        None, 2 * n * n * n_acc,
+        G3.element_size() * W * (2 * n * n + 5 * n), "#6 per-walker")}
 
 
 def time_site_kernels(torch, gen, tk, report, slice_err):
@@ -1056,8 +1090,7 @@ def time_site_kernels(torch, gen, tk, report, slice_err):
 
     K, P = tk.KERNELS, tk.PLAIN
     rows = _shared_order_rows(torch, K, P, G3, args(orders[0]), W, n, k)
-    rows.update(_per_walker_rows(torch, K, P, G3, args(orders), W, n))
-    time_rank1_basic(torch, gen, tk, report)
+    time_rank1(torch, gen, tk, report, slice_err)
     # device time (a CUDA graph of calls) where one launch is short enough
     # for events around it to time the host
     graphed = {"delayed_slice": 5, "submatrix_group": 3,
@@ -1070,8 +1103,7 @@ def time_site_kernels(torch, gen, tk, report, slice_err):
         record(report, name, max_abs_err=slice_err[scheme], ms=ms,
                plain_ms=plain_ms, ops=ops, nbytes=nbytes, library_ms=lib_ms)
         r = report[name]
-        what = "one launch" if name == "rank1_sites" else "one slice"
-        say(f"phase 6: {name} f32 W={W} ns={n} k={k}, {what}: kernel "
+        say(f"phase 6: {name} f32 W={W} ns={n} k={k}, one slice: kernel "
             f"{ms:.4f} ms{' (device time)' if reps else ''}, plain "
             f"{plain_ms:.3f} ms, "
             + (f"one torch.baddbmm {lib_ms:.4f} ms (device time), " if lib
@@ -1145,8 +1177,9 @@ n_walkers = 4
 
 def phase_stretch(torch):
     """bench.py's stretch configuration through the entry point: the
-    per-slice engine (ns = 1024 > 512), #3 by default and #5 with
-    site_update = submatrix; K1 stabilizes both."""
+    per-slice engine (ns = 1024 > 512), #3 by default, #5 with
+    site_update = submatrix and #6 with site_update = scan (then one more
+    scan pair profiled); K1 stabilizes all three."""
     site = ("delayed_slice",)
     sub = ("submatrix_group", "submatrix_flush")
     run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 n_stab=5 W=4 "
@@ -1155,6 +1188,40 @@ def phase_stretch(torch):
     run_params(torch, STRETCH + "[simulation]\nsite_update = submatrix\n",
                "stretch, site_update = submatrix (#5), 0 + 1 pairs",
                ("cgs2_qr",) + sub, "phase 7")
+    scan = STRETCH + "[simulation]\nsite_update = scan\n"
+    run_params(torch, scan, "stretch, site_update = scan (#6), 0 + 1 pairs",
+               ("cgs2_qr", "rank1_sites"), "phase 7")
+    profile_params(torch, scan, "stretch, site_update = scan (#6)", 0, 1,
+                   "phase 7")
+
+
+def profile_params(torch, text, label, warm, n_pairs, phase):
+    """``n_pairs`` per-slice sweep pairs of the float32 attractive model
+    of a parameter string, after ``warm`` pairs, under torch.profiler
+    (_profiled), printing the device busy time per pair."""
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.engine.state import make_generators
+    from dqmc_tpu_torch.engine.sweep import init_state, sweep_pair
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
+    from dqmc_tpu_torch.run import make_engine_config
+    dev = torch.device("cuda")
+    params = Parameters.from_string(text)
+    lat = square_lattice(params.get_int("Lattice", "L1"),
+                         params.get_int("Lattice", "L2"))
+    model = MODEL_REGISTRY["attractive"].from_params(
+        params, lat, dtype=torch.float32, device=dev)
+    cfg = make_engine_config(params, dev,
+                             params.get_int("simulation", "n_stab"))
+    states = init_state(model, cfg, make_generators(
+        params.get_int("simulation", "seed", 42),
+        params.get_int("walkers", "n_walkers"), dev))
+    for _ in range(warm):
+        states = sweep_pair(model, cfg, states)
+    busy, wall = _profiled(torch, label, lambda s: sweep_pair(model, cfg, s),
+                           states, n_pairs, phase)
+    say(f"{phase}: {label}: device busy {busy / n_pairs:.4f} s per pair, "
+        f"wall {wall / n_pairs:.4f} s per pair (profiled)")
 
 
 def phase_basic_slice(torch):
@@ -1169,6 +1236,9 @@ def phase_basic_slice(torch):
                "examples/basic, engine = slice, site_update = scan (#6), "
                "n_stab=5, 20 + 2x10 pairs", ("rank1_sites", "cgs2_qr"),
                "phase 8")
+    profile_params(torch, text + cut + "site_update = scan\n",
+                   "examples/basic, site_update = scan (#6)", 2, 5,
+                   "phase 8")
     run_params(torch, text + cut + "site_update = delayed\n",
                "examples/basic, engine = slice, site_update = delayed "
                "(#3, per-walker order, k=32), n_stab=5, 20 + 2x10 pairs",
@@ -1205,6 +1275,7 @@ def _profiled(torch, label, step, states, n_pairs, phase="phase 9",
     for e in rows[:8]:
         say(f"{phase}:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
             f"({dev(e) / 1e6 / busy:6.1%}) {e.count} calls")
+    return busy, wall
 
 
 def phase_profile(torch):
@@ -1387,6 +1458,12 @@ BLOCK_SHAPES_SUB = ((4, 6, 4.0, 40, 5), (16, 16, 8.0, 160, 5))
 # #2c's largest shapes, float64 only (the one-CTA loop refused float64 from
 # ns = 448): 22 x 22 (k = 4) and 16 x 32 (ns = 512)
 BLOCK_SHAPES_SUB_F64 = ((16, 22, 4.0, 40, 5), (16, (16, 32), 4.0, 40, 5))
+# #2c on one CTA per walker (ns <= 32: 32 threads, whose one warp both
+# decides and loads the flush operands): W, L, beta, nt, n_slices, the
+# ranks, the float types; 4 x 4 is tests/test_torch_cuda.py's input
+BLOCK_CASES_SUB_ONE_CTA = ((2, 4, 3.0, 12, 3, (4, 16), ("float64",)),
+                           (4, 5, 4.0, 40, 5, (5, 25),
+                            ("float64", "float32")))
 
 
 def _diverged(torch, fa, fb, forward):
@@ -1706,6 +1783,27 @@ def phase_submatrix_block(torch, gen, report):
     if smis > 0.01 * W * ns:
         fail("submatrix site-loop kernel f32 decisions disagree with the "
              "twin")
+    # one CTA per walker, on a generator of its own (the checks above keep
+    # their inputs)
+    g1 = torch.Generator(device="cuda")
+    g1.manual_seed(16)
+    for W, L, beta, nt, n, ranks, dtypes in BLOCK_CASES_SUB_ONE_CTA:
+        for dtype in (getattr(torch, x) for x in dtypes):
+            model, states, order, props, us = block_inputs(
+                torch, g1, W, L, beta, nt, n, dtype)
+            for k in ranks:
+                for forward in (True, False):
+                    fb = (states.fields[:, :n] if forward
+                          else states.fields[:, -n:])
+                    args = (model, order, props, us, states.G, fb)
+                    kw = dict(n_slices=n, forward=forward, k_delay=k,
+                              update="submatrix")
+                    tag = (f"phase 10: #2c {str(dtype)[6:]} W={W} "
+                           f"ns={L * L} n_slices={n} k={k} one CTA per "
+                           f"walker {'fwd' if forward else 'bwd'}")
+                    # tests/test_torch_cuda.py's tolerances for G
+                    _hold_block(torch, fused, tag, args, kw, dtype,
+                                g_tol=3e-8 if forward else 2e-6)
 
 
 # the fused site loops alone: W, ns, flavors, submatrix, float type

@@ -302,7 +302,7 @@ __device__ __forceinline__ void submatrix_slice_body(
     if (tid < 32) {
       sub_decide_warp(sm, cnt, gbs + g0, dls + g0, uss + g0, accs + g0, tid);
       if (nthreads == 32)
-        sub_panels(Gw, n, I, cnt, a0, own, Uo, Rp, GR, Rp, 0, 32);
+        sub_panels(Gw, n, I, cnt, a0, own, Uo, Rp, GR, Rp, tid, 32);
     } else {
       sub_panels(Gw, n, I, cnt, a0, own, Uo, Rp, GR, Rp, tid - 32,
                  nthreads - 32);

@@ -4,7 +4,8 @@ PyTorch counterpart of ``dqmc_tpu/ops/kernels.py``.  One time slice of the
 sequential Metropolis site loop, walker-batched, in three schemes:
 
 - #6 ``metropolis_slice_update``: rank-1 Sherman-Morrison per accepted
-  visit (``csrc/site_update.cu`` rank1_sites_kernel);
+  visit (``csrc/site_update.cu`` rank1_sites_kernel: the whole slice in
+  one launch, one thread-block cluster per walker with G's rows on chip);
 - #3 ``metropolis_slice_update_batched``: delayed rank-k updates, the
   pending terms flushed as G += U^T V every k visits
   (``csrc/site_update.cu`` delayed_slice_kernel: the whole slice in one

@@ -127,6 +127,37 @@ the package builds it, with ``--fmad=false``):
   (``PANEL_PROBES``, which match the checkout's text only): cycles per
   column by phase at the shapes of ``split``.
 
+The rank-1 site loop #6 on one CTA per walker with G in global memory
+(before its cluster redesign), given that commit's ``site_update.cu`` and
+the ``site_loop.cuh`` it includes, in one directory:
+
+    mkdir old && for f in site_update.cu site_loop.cuh; do
+        git show <commit>:dqmc_tpu_torch/csrc/$f > old/$f; done
+    python3 scripts/seed_split.py rank1 --source old/site_update.cu \
+        [--parts split,bits,times]
+
+- ``split``: device time per launch of the seed and of builds without one
+  stage each -- the 64-bit division of the update's index (a shift in its
+  place), G's global traffic in the update (the products summed in a
+  register instead), the two barriers of an accepted visit, and every
+  update (the decisions alone) -- at (4, 36), (16, 256) and (4, 1024) in
+  both float types, with the accepted count of each build;
+- ``bits``: the seed against the checkout on the same inputs (a physical
+  G at the stretch dtau, ``chip_smoke.slice_inputs``) at those shapes,
+  both float types, shared and per-walker orders: G and the accept flags
+  bit for bit?
+- ``times``: both, alternating (seed, checkout, checkout, seed) in device
+  time per launch at those shapes, then builds of the checkout with the
+  cluster fixed at C = 1, 2, 4, 8 and 16 CTAs per walker (its
+  ``rank1_cluster`` replaced);
+- ``probes`` (not in the default parts): the checkout against builds in
+  which an accepted visit updates row nx alone (the handoff chain) or a
+  row travels as one 16-byte vector (wrong results; only the times are
+  read), float32;
+- ``clock`` (not in the default parts): the checkout built with
+  ``clock64()`` stamps between the stages of a visit (``RANK1_CLOCKS``):
+  cycles per visit by stage on thread 0 of CTA 0, float32.
+
 The stubs match the seed's text only, and the script stops on any other.
 Needs a CUDA card and nvcc; prints one line per measurement.
 """
@@ -1408,19 +1439,259 @@ def panels_times(torch, source, tmp) -> None:
                   f"panel {lib_ms:.4f} (CUDA events)", flush=True)
 
 
+# #6's shapes: examples/basic (W = 4, 6 x 6), the headline's view (16,
+# 16 x 16) and the stretch (4, 32 x 32), as (W, L)
+RANK1_SHAPES = ((4, 6), (16, 16), (4, 32))
+# the seed's stages (its rank1_sites_kernel), one per build
+_RANK1_LOOP = "    for (long long e = tid; e < (long long)n * n; e += nthr) {\n"
+RANK1_STUBS = {
+    "division": ("const int a = (int)(e / n), b = (int)(e - (long long)a * n);",
+                 "const int a = (int)(e >> 5) & 31, b = (int)e & 31;"),
+    "G traffic": ((_RANK1_LOOP, "    T sink = T(0);\n" + _RANK1_LOOP),
+                  ("      G[e] += col[a] * row[b];\n    }\n",
+                   "      sink = fma(col[a], row[b], sink);\n    }\n"
+                   "    if (sink == T(-7.25)) G[tid] = sink;\n")),
+    "barriers": (("    __syncthreads();\n" + _RANK1_LOOP, _RANK1_LOOP),
+                 ("    }\n    __syncthreads();\n  }\n}\n",
+                  "    }\n  }\n}\n")),
+    "updates": ("if (!accept) continue;", "continue;"),
+}
+RANK1_LAYOUTS = (1, 2, 4, 8, 16)
+# the checkout's choice of cluster, replaced by a fixed C for ``times``
+RANK1_POLICY = ("  int C = 1;\n  while (C < dqmc::SITE_CLUSTER_MAX && "
+                "(n + C - 1) / C > RANK1_RMAX) C *= 2;\n  return C;\n")
+# throwaway builds of the checkout's #6 for ``probes`` (wrong results; only
+# the times are read): an accepted visit updates row nx alone (the handoff
+# chain without the bulk update), and a row travels as one vector
+RANK1_PROBES = {
+    "row nx alone": (
+        ("        for (int q = 0; q < VW; ++q) greg[k][q] = fma(cl, rv[q], "
+         "greg[k][q]);",
+         "        for (int q = 0; q < VW; ++q)\n"
+         "          if (l == lnx) greg[k][q] = fma(cl, rv[q], greg[k][q]);"),
+        ("for (int l0 = rg + LR; l0 < own; l0 += B * RG) {",
+         "for (int l0 = rg + LR; l0 < 0; l0 += B * RG) {")),
+    "one vector per row": (
+        ("const unsigned row_bytes = 16u * NV;",
+         "const unsigned row_bytes = 16u;"),
+        ("      for (int r = 0; r < C; ++r)\n        st_async_vec",
+         "      for (int r = 0; r < (j == 0 ? C : 0); ++r)\n"
+         "        st_async_vec")),
+}
+_RANK1 = [_VP] * 3 + [_LL] + [_VP] * 3 + [_I] * 2 + [_VP]
+
+
+def rank1_fn(lib, dtype):
+    return _bind(lib, "dqmc_rank1_sites" + ("_f64" if dtype == "float64"
+                                            else "_f32"), _RANK1)
+
+
+def rank1_inputs(torch, W, L, dtype, shared):
+    """One slice of #6 as phase 6 gives it (chip_smoke.slice_inputs: a
+    physical G at the stretch dtau, per-walker couplings): G (W, n, n),
+    the order ((n,) shared or (W, n)), gb, delta and us by visit."""
+    from chip_smoke import slice_inputs
+    from dqmc_tpu_torch.ops import kernels as tk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(100 + L)
+    dt = getattr(torch, dtype)
+    G, fields, orders, props, us, g, alpha = slice_inputs(torch, gen, W, L,
+                                                          dt)
+    n = L * L
+    order = (orders[0] if shared else orders).to(torch.int32).contiguous()
+    _, gb, delta = tk.visit_factors(g, alpha, fields,
+                                    order.long().expand(W, n), props, dt)
+    return (G[:, 0].contiguous(), order, gb.contiguous(), delta.contiguous(),
+            us.contiguous())
+
+
+def run_rank1(torch, fn, inputs):
+    """One launch on a copy of G; returns (G, accept flags)."""
+    G0, order, gb, delta, us = inputs
+    W, n = gb.shape
+    G = G0.clone()
+    acc = torch.zeros_like(gb)
+    _check(fn(_ptr(G), _ptr(acc), _ptr(order), 0 if order.dim() == 1 else n,
+              _ptr(gb), _ptr(delta), _ptr(us), n, W, _stream()), "rank1")
+    return G, acc
+
+
+def rank1_probes(torch, source, tmp) -> None:
+    """The checkout's #6 against the RANK1_PROBES builds, alternating,
+    device time per launch at RANK1_SHAPES in float32."""
+    src = REPO / "dqmc_tpu_torch" / "csrc" / "site_update.cu"
+    libs = nvcc_all(stubbed(src, RANK1_PROBES), tmp, None)
+    for W, L in RANK1_SHAPES:
+        n = L * L
+        inputs = rank1_inputs(torch, W, L, "float32", False)
+        t = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            fn = rank1_fn(libs[name], "float32")
+            t[name].append(device_ms(lambda: run_rank1(torch, fn, inputs),
+                                     _rank1_reps(n)))
+        print(f"rank1 probes ({W}, {n}) float32, device ms per launch: "
+              + ", ".join(f"{'checkout' if name == 'full' else name} "
+                          f"{a:.4f} / {b:.4f}" for name, (a, b) in
+                          t.items()), flush=True)
+
+
+# the checkout's #6 with clock64() stamps between the stages of a visit:
+# (text before, text after, the stage that ends between them); every
+# thread keeps the sums, and thread 0 of CTA 0 of walker 0 writes them
+# over that walker's first accept flags when the slice is done
+RANK1_CLOCKS = (
+    ("    __syncthreads();\n", "    if constexpr (!ONE) {\n      if (v > 0",
+     "top barrier (the own CTA's last update)"),
+    ("        mbar_expect(smem_addr(full + v % D), row_bytes);\n    }\n", "",
+     "free arrivals, wait for the row"),
+    ("      a.acc[ws + v] = accept ? T(1) : T(0);\n",
+     "", "decision"),
+    ("      if (nx >= 0) produce(v + 1, nx);\n", "      continue;",
+     "rejected: row nx and column nx"),
+    ("      pend = true;\n    }\n", "  }\n  // no CTA leaves",
+     "accepted: the update and the pushes"),
+)
+
+
+def rank1_clocked(text: str) -> str:
+    stamp = ("    {{ const long long c_ = clock64(); prof_[{k}] += c_ - t_; "
+             "t_ = c_; }}\n")
+    for k, (before, after, _) in enumerate(RANK1_CLOCKS):
+        if text.count(before + after) != 1:
+            sys.exit(f"rank1 probe {k}: anchor matches "
+                     f"{text.count(before + after)} times")
+        text = text.replace(before + after,
+                            before + stamp.format(k=k) + after)
+    head = "  T greg[KR][VW];  // own rows rg + k RG, k < KR\n"
+    tail = ("  // no CTA leaves while another may still arrive on its barriers "
+            "(and\n")
+    for anchor in (head, tail):
+        if text.count(anchor) != 1:
+            sys.exit("rank1 probe: kernel anchors not found")
+    n = len(RANK1_CLOCKS)
+    text = text.replace(head, head + (
+        f"  long long prof_[{n}] = {{}};\n  long long t_ = clock64();\n"))
+    return text.replace(tail, (
+        "  if (tid == 0 && c == 0 && w == 0)\n"
+        f"    for (int k = 0; k < {n}; ++k)\n"
+        "      reinterpret_cast<long long*>(a.acc)[k] = prof_[k];\n" + tail))
+
+
+def rank1_clock(torch, source, tmp) -> None:
+    """Cycles per visit by stage (thread 0 of CTA 0, walker 0) of the
+    checkout's #6 in a clock64() build, float32 at RANK1_SHAPES."""
+    src = (REPO / "dqmc_tpu_torch" / "csrc" / "site_update.cu").read_text()
+    lib = nvcc_all({"clock": rank1_clocked(src)}, tmp, None)["clock"]
+    for W, L in RANK1_SHAPES:
+        n = L * L
+        inputs = rank1_inputs(torch, W, L, "float32", False)
+        run_rank1(torch, rank1_fn(lib, "float32"), inputs)
+        acc = run_rank1(torch, rank1_fn(lib, "float32"), inputs)[1]
+        cyc = acc[0, :2 * len(RANK1_CLOCKS)].contiguous().view(
+            torch.int64).tolist()
+        total = sum(cyc)
+        print(f"rank1 clock ({W}, {n}) float32, cycles per visit (thread 0 "
+              f"of CTA 0, walker 0): {total / n:.0f}: " + ", ".join(
+                  f"{name} {c / n:.0f} ({100 * c / total:.1f}%)"
+                  for (_, _, name), c in zip(RANK1_CLOCKS, cyc)),
+              flush=True)
+
+
+def _rank1_reps(n):
+    return 2 if n > 512 else 20
+
+
+def rank1_split(torch, source, tmp) -> None:
+    """Device time per launch of the seed and of its builds without one
+    stage each (wrong results; the accepted counts show how far the
+    decisions moved)."""
+    libs = nvcc_all(stubbed(source, RANK1_STUBS), tmp, source)
+    for dtype in ("float32", "float64"):
+        for W, L in RANK1_SHAPES:
+            n = L * L
+            inputs = rank1_inputs(torch, W, L, dtype, False)
+            t, took = {}, {}
+            for name, lib in libs.items():
+                fn = rank1_fn(lib, dtype)
+                took[name] = int(run_rank1(torch, fn, inputs)[1].sum())
+                t[name] = device_ms(lambda: run_rank1(torch, fn, inputs),
+                                    _rank1_reps(n))
+            full = t["full"]
+            print(f"rank1 split ({W}, {n}) {dtype}, device ms per launch: "
+                  f"seed {full:.4f} ({took['full']} of {W * n} accepted); "
+                  "without " + ", ".join(
+                      f"{name} {ms:.4f} ({full - ms:+.4f}, "
+                      f"{100 * (full - ms) / full:.1f}%; {took[name]} "
+                      f"accepted)" for name, ms in t.items()
+                      if name != "full"), flush=True)
+
+
+def rank1_bits(torch, source, tmp) -> None:
+    """The seed against the checkout: G and the flags bit for bit?"""
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source)["seed"]
+    for dtype in ("float64", "float32"):
+        for W, L in RANK1_SHAPES:
+            for shared in (True, False):
+                inputs = rank1_inputs(torch, W, L, dtype, shared)
+                a = run_rank1(torch, rank1_fn(seed, dtype), inputs)
+                b = run_rank1(torch, rank1_fn(_checkout(), dtype), inputs)
+                torch.cuda.synchronize()
+                print(f"rank1 bits ({W}, {L * L}) {dtype} "
+                      f"{'shared' if shared else 'per-walker'} order "
+                      f"({int(a[1].sum())} of {a[1].numel()} accepted, max "
+                      f"|G| {float(a[0].abs().max()):.3e}): "
+                      f"{_same(torch, a, b)}", flush=True)
+
+
+def rank1_times(torch, source, tmp) -> None:
+    """The seed and the checkout alternating, then the checkout with the
+    cluster fixed at each of RANK1_LAYOUTS beside the default build; device
+    time per launch (with the copy of G the call makes)."""
+    csrc = REPO / "dqmc_tpu_torch" / "csrc"
+    src = (csrc / "site_update.cu").read_text()
+    seed = nvcc_all({"seed": source.read_text()}, tmp, source)["seed"]
+    if src.count(RANK1_POLICY) != 1:
+        sys.exit("rank1 times: the cluster policy's text not found")
+    layouts = nvcc_all({f"C{C}": src.replace(RANK1_POLICY, f"  return {C};\n")
+                        for C in RANK1_LAYOUTS}, tmp, None)
+    layouts = {C: layouts[f"C{C}"] for C in RANK1_LAYOUTS}
+    for dtype in ("float32", "float64"):
+        for W, L in RANK1_SHAPES:
+            n = L * L
+            inputs = rank1_inputs(torch, W, L, dtype, False)
+            fns = {"seed": rank1_fn(seed, dtype),
+                   "checkout": rank1_fn(_checkout(), dtype)}
+            t = {"seed": [], "checkout": []}
+            for name in ("seed", "checkout", "checkout", "seed"):
+                t[name].append(device_ms(lambda: run_rank1(
+                    torch, fns[name], inputs), _rank1_reps(n)))
+            lay = {}
+            for C, lib in layouts.items():
+                fn = rank1_fn(lib, dtype)
+                lay[C] = device_ms(lambda: run_rank1(torch, fn, inputs),
+                                   _rank1_reps(n))
+            print(f"rank1 times ({W}, {n}) {dtype}, device ms per launch: "
+                  f"seed {t['seed'][0]:.4f} / {t['seed'][1]:.4f}, checkout "
+                  f"{t['checkout'][0]:.4f} / {t['checkout'][1]:.4f}; "
+                  "layouts " + ", ".join(f"C={C} {ms:.4f}"
+                                         for C, ms in lay.items()),
+                  flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=("k1", "sites", "delayed",
-                                       "submatrix", "panels"))
+                                       "submatrix", "panels", "rank1"))
     ap.add_argument("--source", required=True, type=Path,
                     help="the seed's cgs2_qr.cu (k1), fused_block.cu "
                     "(sites), site_update.cu (delayed), "
-                    "submatrix_update.cu (submatrix) or mw_qr_panel.cu "
-                    "(panels)")
+                    "submatrix_update.cu (submatrix), mw_qr_panel.cu "
+                    "(panels) or site_update.cu (rank1)")
     ap.add_argument("--parts", default="split,barriers,bits,times",
                     help="sites: which of split, barriers, bits, times; "
                     "delayed and submatrix: which of split, bits, times, "
-                    "probes; panels: which of split, bits, times, probe")
+                    "probes; panels: which of split, bits, times, probe; "
+                    "rank1: which of split, bits, times, probes, clock")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1429,6 +1700,15 @@ def main() -> None:
     if opts.kernel == "k1":
         return k1_split(opts)
     parts = opts.parts.split(",")
+    if opts.kernel == "rank1":
+        with tempfile.TemporaryDirectory() as tmp:
+            for part, run in (("split", rank1_split), ("bits", rank1_bits),
+                              ("times", rank1_times),
+                              ("probes", rank1_probes),
+                              ("clock", rank1_clock)):
+                if part in parts:
+                    run(torch, opts.source, Path(tmp))
+        return
     if opts.kernel == "panels":
         with tempfile.TemporaryDirectory() as tmp:
             for part, run in (("split", panels_split),

@@ -124,32 +124,45 @@ SITE_SCHEMES = {
 @pytest.mark.parametrize("scheme", list(SITE_SCHEMES))
 def test_site_update_kernels_match_twin_f64(gen, scheme, shared):
     """#3, #5 and #6 against their twins, one slice at ns = 36 with a
-    short last block (k = 8): the same decisions and G to 1e-12."""
+    short last block (k = 8): the same decisions and G to 1e-12.  #6 also
+    at ns = 256 and 1024 (clusters of 4 and 16 CTAs per walker; float64
+    rows past a CTA's shared memory stay in G at 1024): the same
+    decisions, G to 1e-9 of its largest entry (ns sequential rank-1
+    updates, the kernel's fused multiply-adds against the twin's rounded
+    products), and the same bits on a second call."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.ops import kernels as tk
-    W, n, k = 3, 36, 8
-    f64 = dict(device="cuda", dtype=torch.float64)
-    G = (0.1 * torch.randn((W, 1, n, n), generator=gen, **f64)
-         + 0.5 * torch.eye(n, **f64))
-    fields = torch.randint(0, 4, (W, n), generator=gen, device="cuda")
-    orders = torch.argsort(torch.rand((W, n), generator=gen,
-                                      device="cuda"), dim=-1)
-    props = torch.randint(0, 3, (W, n), generator=gen, device="cuda")
-    us = torch.rand((W, n), generator=gen, **f64)
-    g = torch.tensor([0.30, 0.28, 0.32], **f64)
-    alpha = torch.full((W,), -1.0, **f64)
     name, rank_kw, launched = SITE_SCHEMES[scheme]
     fn = getattr(tk, name)
-    kw = {rank_kw: k, "exact_rank": True} if rank_kw else {}
-    args = (g, alpha, orders[0] if shared else orders, props, us, G, fields)
-    before = dict(_cuda.LAUNCHES)
-    Gk, fk, ak = fn(*args, **kw)
-    assert all(_cuda.LAUNCHES[x] > before[x] for x in launched)
-    Gp, fp, ap = fn(*args, plain=True, **kw)
-    assert torch.equal(fk, fp)
-    assert torch.equal(ak, ap)
-    assert 0.0 < float(ak.mean()) < 1.0
-    assert float((Gk - Gp).abs().max() / Gp.abs().max()) < 1e-12
+    f64 = dict(device="cuda", dtype=torch.float64)
+    sizes = ((3, 36, 1e-12),) + (((2, 256, 1e-9), (2, 1024, 1e-9))
+                                 if scheme == "rank1" else ())
+    for W, n, g_tol in sizes:
+        k = 8
+        G = ((0.6 / n ** 0.5) * torch.randn((W, 1, n, n), generator=gen,
+                                            **f64)
+             + 0.5 * torch.eye(n, **f64))
+        fields = torch.randint(0, 4, (W, n), generator=gen, device="cuda")
+        orders = torch.argsort(torch.rand((W, n), generator=gen,
+                                          device="cuda"), dim=-1)
+        props = torch.randint(0, 3, (W, n), generator=gen, device="cuda")
+        us = torch.rand((W, n), generator=gen, **f64)
+        g = torch.tensor([0.30, 0.28, 0.32][:W], **f64)
+        alpha = torch.full((W,), -1.0, **f64)
+        kw = {rank_kw: k, "exact_rank": True} if rank_kw else {}
+        args = (g, alpha, orders[0] if shared else orders, props, us, G,
+                fields)
+        before = dict(_cuda.LAUNCHES)
+        Gk, fk, ak = fn(*args, **kw)
+        assert all(_cuda.LAUNCHES[x] > before[x] for x in launched)
+        Gp, fp, ap = fn(*args, plain=True, **kw)
+        assert torch.equal(fk, fp)
+        assert torch.equal(ak, ap)
+        assert 0.0 < float(ak.mean()) < 1.0
+        assert float((Gk - Gp).abs().max() / Gp.abs().max()) < g_tol
+        if n > 36:
+            again = fn(*args, **kw)
+            assert torch.equal(Gk, again[0]) and torch.equal(fk, again[1])
 
 
 def _block_case(gen, model_name, mu, n=3, W=2, L=(4, 4), beta=3.0,
