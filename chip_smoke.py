@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py                 # every phase (12 to 15 minutes)
+    python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 1,6    # a subset, for iterating
     python3 chip_smoke.py --registers     # ptxas registers per kernel
 
@@ -96,13 +96,32 @@ non-zero):
 15. the df32 headline (16x16, beta=8, nt=160, n_stab=5, W=16, dtype =
     df32) through run_simulation (#3, K1, #7), G_df of the final fields
     against the native float64 rebuild (< 1e-7), two blocks profiled;
-16. examples/tpu_production's tier split (the fused float32 engine, every
-    measurement rebuilt at tf32 through #8, n_stab = auto; the unequal-time,
-    checkpoint and spool keys off): the tier G against the native float64
-    rebuild (< 1e-9); then a short measure_precision = df32 run (#7).
+16. examples/tpu_production's tier split with unequal-time measurement
+    and the spin and charge sets (the fused float32 engine; every
+    measurement rebuilds the tau-resolved triplet at tf32 through #8 and
+    K1, its G00 the equal-time G; n_stab = auto; the checkpoint and spool
+    keys off): the tier of the final fields against the native float64 tau
+    sweep at n_stab = 1, every tau, and its G00 against the float64
+    rebuild (<= 1e-9 of max|G|); then a short measure_precision = df32 run
+    (#7), held likewise at 1e-7;
+17. the engine-grade tau path (engine/uneqtime.py): (a) free fermions at
+    the headline shape in float64 and float32 against the exact
+    propagators (1e-10, 1e-2), with the boundary identities; (b) the
+    headline with unequal-time measurement through run_simulation, 2 + 3
+    pairs in float32 (its rate and err_uneq_max; the float32 tau sweep of
+    the final fields against float64, per walker <= 5e-2 of its max|G|;
+    one measured iteration and its tau sweep under torch.profiler), then
+    1 + 1 pairs in float64 (err_uneq_max < 1e-6); (d)
+    examples/repulsive_spin through the CLI with its sweep counts cut
+    (#2b + K1), at its n_stab = 10 (printed) and at 2 (signs +1,
+    err_uneq_max < 1e-2), and on its fields (c) the
+    tau = 0 identities in float64 (<= 1e-12); then the df32 headline with
+    unequal-time measurement, 1 + 1 pairs, the tau sweep on the walkers'
+    float32 view against float64 (as in (b), <= 5e-2 of max|G|).
 
-Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13, 15, 16) sets
-the launch counters to 0 just before and reads them just after.  The line
+Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13, 15, 16, 17)
+sets the launch counters to 0 just before and reads them just after; the
+tau runs also count the launches made inside their tau sweeps.  The line
 before the last is one JSON object describing every kernel; the last line
 is the result object.  Tolerances are stated where they are checked.
 """
@@ -1191,14 +1210,17 @@ def phase_stretch(torch):
     scan = STRETCH + "[simulation]\nsite_update = scan\n"
     run_params(torch, scan, "stretch, site_update = scan (#6), 0 + 1 pairs",
                ("cgs2_qr", "rank1_sites"), "phase 7")
+    # device activity alone: the host's records of a stretch pair take
+    # about a minute to aggregate
     profile_params(torch, scan, "stretch, site_update = scan (#6)", 0, 1,
-                   "phase 7")
+                   "phase 7", cpu=False)
 
 
-def profile_params(torch, text, label, warm, n_pairs, phase):
+def profile_params(torch, text, label, warm, n_pairs, phase, cpu=True):
     """``n_pairs`` per-slice sweep pairs of the float32 attractive model
     of a parameter string, after ``warm`` pairs, under torch.profiler
-    (_profiled), printing the device busy time per pair."""
+    (_profiled; ``cpu=False``: device activity alone), printing the device
+    busy time per pair."""
     from dqmc_tpu_torch.config import Parameters
     from dqmc_tpu_torch.engine.state import make_generators
     from dqmc_tpu_torch.engine.sweep import init_state, sweep_pair
@@ -1219,7 +1241,7 @@ def profile_params(torch, text, label, warm, n_pairs, phase):
     for _ in range(warm):
         states = sweep_pair(model, cfg, states)
     busy, wall = _profiled(torch, label, lambda s: sweep_pair(model, cfg, s),
-                           states, n_pairs, phase)
+                           states, n_pairs, phase, cpu=cpu)
     say(f"{phase}: {label}: device busy {busy / n_pairs:.4f} s per pair, "
         f"wall {wall / n_pairs:.4f} s per pair (profiled)")
 
@@ -1297,7 +1319,7 @@ def phase_profile(torch):
     cfg = make_engine_config(params, dev, 5)
     states = init_state(model, cfg, make_generators(42, 4, dev))
     _profiled(torch, "stretch, site_update = pallas (#3)",
-              lambda s: sweep_pair(model, cfg, s), states, 1)
+              lambda s: sweep_pair(model, cfg, s), states, 1, cpu=False)
     params = Parameters.from_string(REPULSIVE)
     model = MODEL_REGISTRY["repulsive"].from_params(
         params, square_lattice(8, 8), dtype=torch.float32, device=dev)
@@ -1307,7 +1329,7 @@ def phase_profile(torch):
         states = init_state(model, cfg, make_generators(42, 32, dev))
         states = step(model, cfg, states)              # warm-up pair
         _profiled(torch, f"repulsive preset, {label}",
-                  lambda s: step(model, cfg, s), states, 3)
+                  lambda s: step(model, cfg, s), states, 3, cpu=False)
 
 
 def _flipping_seed(torch, make, run_twin, what):
@@ -2234,61 +2256,638 @@ def phase_df32_headline(torch):
               unit="forward sweep of 2 blocks (1/32 of a headline pair)")
 
 
-def _production_params(extra: str = ""):
-    """examples/tpu_production/parameters.in with the keys the port takes
-    later (unequal-time measurement, checkpoints, the spool sink) off and
-    the sweep counts cut."""
+class TauLaunches:
+    """The kernel launches made inside a run's unequal-time sweeps: wraps
+    dqmc_tpu_torch.run's sweep_unequal_time and the steps its
+    measurement_uneq_fn builds, adding each call's launches to
+    ``counts``."""
+
+    def __enter__(self):
+        from dqmc_tpu_torch import _cuda, run
+        self.counts = Counter()
+        self._run = run
+        self._saved = (run.sweep_unequal_time, run.measurement_uneq_fn)
+
+        def counted(fn):
+            def call(*args, **kw):
+                before = Counter(_cuda.LAUNCHES)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.counts.update(Counter(_cuda.LAUNCHES) - before)
+            return call
+
+        def uneq_fn(*args, **kw):
+            step = self._saved[1](*args, **kw)
+            wrapped = counted(step)
+            wrapped.n_stab = step.n_stab
+            return wrapped
+
+        run.sweep_unequal_time = counted(self._saved[0])
+        run.measurement_uneq_fn = uneq_fn
+        return self
+
+    def __exit__(self, *exc):
+        self._run.sweep_unequal_time, self._run.measurement_uneq_fn = \
+            self._saved
+
+
+def run_tau(torch, text, label, need, tau_need, phase):
+    """run_params with the launches inside the tau sweeps counted: every
+    kernel in ``tau_need`` must have launched there."""
+    with TauLaunches() as tau:
+        summary = run_params(torch, text, label, need, phase)
+    say(f"{phase}: {label}: launches inside the tau sweeps "
+        f"{dict(tau.counts)}, tau self-check max (err_uneq_max) "
+        f"{summary.err_uneq_max:.3e}")
+    missing = [k for k in tau_need if not tau.counts[k]]
+    if missing:
+        fail(f"{label}: not launched inside the tau sweep: {missing}")
+    return summary
+
+
+def f64_states(torch, params, fields, n_stab, device="cuda"):
+    """The float64 model of a parameter set, and WalkerStates of the fields
+    (W, nt, ns) as a rebuild at ``n_stab`` leaves them (the suffix stack
+    and G(0, 0) the tau sweep starts from)."""
+    from dqmc_tpu_torch.engine.state import EngineConfig, WalkerState
+    from dqmc_tpu_torch.engine.sweep import rebuild_stack_and_greens
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
+    model = MODEL_REGISTRY[params.get_str("hubbard", "model",
+                                          "attractive")].from_params(
+        params, make_lattice_of(params), dtype=torch.float64, device=device)
+    cfg = EngineConfig(nt=params.get_int("simulation", "nt"), n_stab=n_stab)
+    stack, G, log_det = rebuild_stack_and_greens(model, cfg, fields)
+    z = torch.zeros(fields.shape[0], dtype=torch.float64, device=device)
+    return model, cfg, WalkerState(
+        fields=fields, G=G, stack=stack, log_det_M=log_det, gens=[],
+        acc_sum=z, sign=z + 1.0, err_max=z, err_sum=z, err_count=z)
+
+
+def tau_gap(torch, ref, order=None):
+    """A tau sweep's measure_fn that holds each emitted batch of taus
+    against the same taus of a reference stream (iter_unequal_time's
+    chunks, on the host), batch by batch, so no whole (nt + 1)-tau stack
+    is held.  ``order`` yields the taus of each call (by default they run
+    consecutively).  Returns (measure_fn, record): record.gap is the
+    largest |dG| over Gtt, Gt0 and G0t, record.gmax the reference's
+    max|G|, record.gap_w and record.gmax_w the same per walker (W,) and
+    record.rel() the largest gap_w / gmax_w."""
+    rec = SimpleNamespace(buf={}, next=0, gap=0.0, gmax=0.0, taus=0,
+                          gap_w=0.0, gmax_w=0.0)
+    rec.rel = lambda: float((rec.gap_w / rec.gmax_w).max())
+
+    def pull(taus):
+        while max(taus) >= rec.next:
+            _, chunk = next(ref)
+            for j in range(chunk[0].shape[1]):
+                rec.buf[rec.next] = [x[:, j] for x in chunk]
+                rec.next += 1
+        return [torch.stack(xs, dim=1)
+                for xs in zip(*(rec.buf.pop(t) for t in taus))]
+
+    def measure(Gtt, Gt0, G0t, G00):
+        k = Gtt.shape[1]
+        taus = (list(range(rec.taus, rec.taus + k)) if order is None
+                else next(order))
+        for a, b in zip((Gtt, Gt0, G0t), pull(taus)):
+            b = b.to(a.device)
+            gap = (a.double() - b).abs().flatten(1).amax(1).cpu()
+            gmax = b.abs().flatten(1).amax(1).cpu()
+            rec.gap_w = torch.maximum(torch.as_tensor(rec.gap_w), gap)
+            rec.gmax_w = torch.maximum(torch.as_tensor(rec.gmax_w), gmax)
+            rec.gap = max(rec.gap, float(gap.max()))
+            rec.gmax = max(rec.gmax, float(gmax.max()))
+        rec.taus += k
+        return {}
+    return measure, rec
+
+
+def tier_order(nt, n_stab):
+    """The taus of the tau tier's emits, call by call: tau 0, then per
+    group of blocks the taus inside its blocks step by step, then its
+    block ends (engine/parity.measurement_uneq_fn)."""
+    from dqmc_tpu_torch.engine.parity import _BLOCK_GROUP
+    yield [0]
+    n_stack = nt // n_stab
+    for g0 in range(0, n_stack, _BLOCK_GROUP):
+        ks = range(g0, min(g0 + _BLOCK_GROUP, n_stack))
+        for i in range(1, n_stab + 1):
+            yield [k * n_stab + i for k in ks]
+
+
+def f64_tau_stream(torch, params, fields, n_stab, warp=False):
+    """The native float64 tau sweep of the fields at ``n_stab``, chunk by
+    chunk on the host, and its G(0, 0)."""
+    from dqmc_tpu_torch.engine.uneqtime import iter_unequal_time
+    model, cfg, states = f64_states(torch, params, fields, n_stab)
+    return iter_unequal_time(model, cfg, states, tau_chunk=16,
+                             warp=warp), states.G, model
+
+
+# phase 17's gate on the float32 tau sweep against float64, per walker
+# over the walker's own max|G|: its largest |dG| over every tau and its
+# self-check.  scripts/tau_f32_witness.py read (NVIDIA H100 80GB HBM3,
+# 700.00 W) 3.4e-3 to 1.4e-2 at the headline's fields (n_stab 5 and 2,
+# seeds 42 and 7, K1 and Householder alike; 1.1e-2 on the df32 engine's
+# float32 view) and 0.9 to 4e3 with a wrong suffix slot or one slice's
+# fields shifted; max|G| runs to ~190 there, which is why an absolute
+# float32 limit does not hold
+TAU_F32_REL = 5e-2
+
+
+def hold_tau(torch, phase, label, states, model, cfg, params, warp=False,
+             f32_view=False):
+    """The engine-grade float32 tau sweep of final walker states against
+    the native float64 tau sweep of their fields at the same n_stab, every
+    tau: per walker, max |dG| and the self-check <= TAU_F32_REL of the
+    walker's max|G|."""
+    from dqmc_tpu_torch.engine.df_sweep import f32_view as view
+    from dqmc_tpu_torch.engine.uneqtime import sweep_unequal_time
+    ref, _, _ = f64_tau_stream(torch, params, states.fields, cfg.n_stab,
+                               warp)
+    measure, rec = tau_gap(torch, ref)
+    _, err = sweep_unequal_time(model, cfg, view(states) if f32_view
+                                else states, measure_fn=measure, warp=warp)
+    err_rel = float((err.double().cpu() / rec.gmax_w).max())
+    say(f"{phase}: {label}: the float32 tau sweep of the final fields "
+        f"against the float64 one at n_stab = {cfg.n_stab}, {rec.taus} "
+        f"taus: max |dG| {rec.gap:.3e}, max|G| {rec.gmax:.3e}, self-check "
+        f"{float(err.max()):.3e}; per walker over its max|G|: |dG| "
+        f"{rec.rel():.3e}, self-check {err_rel:.3e} (<= {TAU_F32_REL:.0e})")
+    if not (rec.taus == cfg.nt + 1 and rec.rel() <= TAU_F32_REL
+            and err_rel <= TAU_F32_REL):
+        fail(f"{label}: the float32 tau sweep disagrees with float64")
+
+
+def _production_params(extra: str = "", walkers: int = 16):
+    """examples/tpu_production/parameters.in with unequal-time measurement
+    and the spin and charge sets on, the keys the port takes later
+    (checkpoints, the spool sink) off, the sweep counts cut and
+    ``walkers`` walkers."""
     from dqmc_tpu_torch.config import Parameters
     params = Parameters(str(REPO / "examples" / "tpu_production" /
                             "parameters.in"))
-    params.set("simulation", "isMeasureUnequalTime", "false")
     params.set("simulation", "checkpoint_every", 0)
     params.set("io", "sink", "h5")
     params.set("walkers", "n_devices", 1)
-    for key, val in dict(n_therms=4, n_bins=1, n_sweeps=2).items():
+    params.set("walkers", "n_walkers", walkers)
+    for key, val in dict(n_therms=4, n_bins=1, n_sweeps=1,
+                         isMeasureUnequalTime="true", measure_spin="true",
+                         measure_charge="true").items():
         params.set("simulation", key, val)
     return Parameters.from_string(params.dumps() + extra)
 
 
-def phase_tier_split(torch, profile=False):
-    """examples/tpu_production's tier split: the fused float32 engine
-    (K2 + K1) samples, every measurement rebuilds G at tf32 (#8 in every
-    fold, stride 2x the engine's), n_stab = auto; 4 + 1x2 pairs.  The tier
-    G of the final fields against the native float64 rebuild (with
-    ``profile``, then one tier measurement under torch.profiler); then a
-    short measure_precision = df32 run of the same chain (#7 through the
-    tier)."""
-    from dqmc_tpu_torch.engine.parity import measurement_greens_fn
+class TierCheck:
+    """Holds a run's tau-tier measurements against the native float64 tau
+    sweep at n_stab = 1 of the fields each one measures, every tau, block
+    by block, as the run makes them: wraps dqmc_tpu_torch.run's
+    measurement_uneq_fn so that the measure_fn it builds also feeds
+    ``tau_gap``, and its step starts the float64 reference from the states
+    it is handed and holds the tier's G00 (the equal-time measurement's G)
+    against the float64 rebuild.  The run's time then includes the
+    reference's."""
+
+    def __init__(self, torch, params):
+        self.torch, self.params = torch, params
+        self.calls, self.taus = 0, 0
+        self.gap = self.g_gap = self.gmax = self.err = 0.0
+
+    def __enter__(self):
+        from dqmc_tpu_torch import run
+        from dqmc_tpu_torch.engine.sweep import half_warp
+        torch, params, check = self.torch, self.params, self
+        symmetric = params.get_bool("simulation", "symmetric", False)
+        self._run, self._saved = run, run.measurement_uneq_fn
+
+        def uneq_fn(model64, cfg, nm, measure_fn, **kw):
+            slot = {}
+
+            def both(Gtt, Gt0, G0t, G00):
+                slot["cmp"](Gtt, Gt0, G0t, G00)
+                return measure_fn(Gtt, Gt0, G0t, G00)
+            step = check._saved(model64, cfg, nm, both, **kw)
+            check.stride, check.name = step.n_stab, nm.__name__.rsplit(
+                ".", 1)[-1]
+
+            def checked(states):
+                ref, G64, m64 = f64_tau_stream(torch, params, states.fields,
+                                               1, symmetric)
+                slot["cmp"], rec = tau_gap(torch, ref,
+                                           tier_order(cfg.nt, step.n_stab))
+                out = step(states)
+                if symmetric:
+                    G64 = half_warp(m64, G64)
+                check.calls += 1
+                check.taus = rec.taus
+                check.gap = max(check.gap, rec.gap)
+                check.g_gap = max(check.g_gap,
+                                  float((out[2] - G64).abs().max()))
+                check.gmax = max(check.gmax, rec.gmax,
+                                 float(G64.abs().max()))
+                check.err = max(check.err, float(out[1].max()))
+                return out
+            checked.n_stab = step.n_stab
+            return checked
+
+        run.measurement_uneq_fn = uneq_fn
+        return self
+
+    def __exit__(self, *exc):
+        self._run.measurement_uneq_fn = self._saved
+
+    def hold(self, phase, W, nt, tol):
+        """Print the record; fail unless every tau of every measurement
+        and G00 lie within tol max|G| of float64."""
+        say(f"{phase}: {self.name} tau tier, W = {W}, stride {self.stride}, "
+            f"{self.calls} measurement(s) of {self.taus} taus against the "
+            f"float64 tau sweep at n_stab = 1: max |dG| {self.gap:.3e}, G00 "
+            f"{self.g_gap:.3e} (<= {tol:.0e} max|G| = "
+            f"{tol * self.gmax:.3e}), tier self-check {self.err:.3e}")
+        if not (self.calls and self.taus == nt + 1
+                and max(self.gap, self.g_gap) <= tol * self.gmax):
+            fail(f"the {self.name} tau tier disagrees with the float64 tau "
+                 f"sweep")
+
+
+def tier_alone(torch, params, states, n_stab):
+    """One tf32 tau-tier measurement of the walkers as the run makes it
+    (the manager's emit of every tau observable): its wall time and peak
+    device memory, then the same under torch.profiler (device activity
+    only: its records take minutes to aggregate)."""
+    from dqmc_tpu_torch.engine.parity import measurement_uneq_fn
     from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.measure.manager import MeasurementManager
+    from dqmc_tpu_torch.models import AttractiveHubbard
     from dqmc_tpu_torch.ops import tf32
-    params = _production_params()
-    summary = run_params(
-        torch, params.dumps(), "tpu_production 16x16 beta=8 nt=160 W=16, "
-        "float32 fused engine, measure_precision = tf32, symmetric, n_stab = "
-        "auto, 4 + 1x2 pairs", ("tf_qr_panel", "cgs2_qr", "fused_wrap",
-                                "fused_sites"), "phase 16")
-    G64, model64 = _f64_rebuild(torch, params, summary.states.fields,
-                                symmetric=True)
-    cfg = EngineConfig(nt=160, n_stab=summary.n_stab)
-    fn = measurement_greens_fn(model64, cfg, tf32, symmetric=True)
-    Gt = fn(summary.states)
-    gap = float((Gt - G64).abs().max())
-    say(f"phase 16: tf32 tier at rebuild stride {fn.n_stab} (engine n_stab "
-        f"{summary.n_stab}): max |G_tf32 - G_f64| of the final fields "
-        f"{gap:.3e} (< 1e-9)")
-    if not gap < 1e-9:
-        fail("tf32 tier G disagrees with the float64 rebuild")
+    lat = make_lattice_of(params)
+    manager = MeasurementManager(lat, n_walkers=states.fields.shape[0],
+                                 out_dir=None, device="cuda",
+                                 measure_unequal=True)
+    manager.add_defaults()
+    manager.add_spin()
+    manager.add_charge()
+    model64 = AttractiveHubbard.from_params(params, lat, dtype=torch.float64,
+                                            device="cuda")
+    fn = measurement_uneq_fn(
+        model64, EngineConfig(nt=params.get_int("simulation", "nt"),
+                              n_stab=n_stab), tf32, manager.uneq_measure_fn,
+        symmetric=params.get_bool("simulation", "symmetric", False),
+        emit_greens=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn(states)
+    torch.cuda.synchronize()
+    say(f"phase 16: one tf32 tau-tier measurement of "
+        f"{states.fields.shape[0]} walkers at stride {fn.n_stab}: "
+        f"{time.perf_counter() - t0:.2f} s wall, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profiled(torch, "tf32 tau tier, one measurement of the walkers",
+              lambda s: (fn(s), s)[1], states, 1, phase="phase 16",
+              cpu=False, unit="measurement")
+
+
+# thermalization pairs of phase 16's df32-tier run
+DF32_TIER_THERMS = 40
+# phase 16's walkers, cut from the example's 16 for the float64 reference's
+# time (the tier itself is host-bound)
+TIER_WALKERS = 8
+
+
+def phase_tier_split(torch, profile=False, walkers=TIER_WALKERS):
+    """examples/tpu_production's tier split with unequal-time measurement:
+    the fused float32 engine (K2 + K1) samples, every measurement rebuilds
+    the tau-resolved triplet at tf32 (#8 in every fold, K1 in every
+    refined solve), whose G00 is the equal-time G; n_stab = auto; 4 + 1x1
+    pairs.  The run's tier measurement against the native float64 tau
+    sweep at n_stab = 1 of the same fields (every tau, <= 1e-9 of
+    max|G|); with ``profile``, one tier measurement timed alone and under
+    torch.profiler.  Then a measure_precision = df32 run of the same
+    configuration (#7 through the tier) after DF32_TIER_THERMS pairs,
+    held likewise at 1e-7."""
+    params = _production_params(walkers=walkers)
+    W = params.get_int("walkers", "n_walkers")
+    with TierCheck(torch, params) as check:
+        summary = run_tau(
+            torch, params.dumps(), f"tpu_production 16x16 beta=8 nt=160 "
+            f"W={W}, float32 fused engine, measure_precision = tf32 with "
+            f"isMeasureUnequalTime, spin and charge sets, symmetric, n_stab "
+            f"= auto, 4 + 1x1 pairs (the float64 reference inside)",
+            ("tf_qr_panel", "cgs2_qr", "fused_wrap", "fused_sites"),
+            ("tf_qr_panel", "cgs2_qr"), "phase 16")
+    nt = params.get_int("simulation", "nt")
+    check.hold("phase 16", W, nt, 1e-9)
     if profile:
-        # where one tier measurement's time goes (every kernel is warm; the
-        # records of its ~1.3 million device operations take minutes to
-        # aggregate, so only scripts/tier_profile.py asks for it)
-        _profiled(torch, "tf32 tier, one measurement of the 16 walkers",
-                  lambda s: (fn(s), s)[1], summary.states, 1,
-                  phase="phase 16", cpu=False, unit="measurement")
-    run_params(torch, _production_params(
-        "[simulation]\nmeasure_precision = df32\nn_therms = 0\nn_sweeps = 1"
-        "\n").dumps(), "tpu_production with measure_precision = df32, 0 + "
-        "1x1 pairs", ("df_qr_panel", "cgs2_qr"), "phase 16")
+        tier_alone(torch, params, summary.states, summary.n_stab)
+    # the df32 tier's grade holds on equilibrated fields (the JAX package's
+    # note at its stride rule: from near-random fields its float32-seeded
+    # refinement can lose orders at any stride), so this chain is
+    # thermalized first
+    params = _production_params(
+        f"[simulation]\nmeasure_precision = df32\nn_therms = "
+        f"{DF32_TIER_THERMS}\n", walkers)
+    with TierCheck(torch, params) as check:
+        run_tau(torch, params.dumps(), f"tpu_production with "
+                f"measure_precision = df32 and isMeasureUnequalTime, "
+                f"{DF32_TIER_THERMS} + 1x1 pairs (the float64 reference "
+                f"inside)", ("df_qr_panel", "cgs2_qr"),
+                ("df_qr_panel", "cgs2_qr"), "phase 16")
+    check.hold("phase 16", W, nt, 1e-7)
+
+
+HEADLINE_UNEQ = """
+[Lattice]
+L1 = 16
+L2 = 16
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 8.0
+nt = 160
+n_stab = 5
+n_therms = 2
+n_bins = 1
+n_sweeps = 3
+dtype = float32
+isMeasureUnequalTime = true
+measure_spin = true
+measure_charge = true
+seed = 42
+[walkers]
+n_walkers = 16
+"""
+
+
+def tau_free_fermions(torch):
+    """(a) U = 0 at the headline shape (16x16, beta=8, nt=160, n_stab=5,
+    W=2) in float64 and float32: Gt0(tau) and Gtt(tau) against the exact
+    e^{-tau K} (I + e^{-beta K})^{-1} and G, and the boundary identities
+    G0t(0) = G - I, G0t(beta) = -G, Gt0(beta) = I - G, every tau, at
+    1e-10 (float64) and 1e-2 (float32); K1 must launch inside the float32
+    sweep."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.engine.sweep import init_state
+    from dqmc_tpu_torch.engine.uneqtime import sweep_unequal_time
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.models.attractive_hubbard import build_kinetic_matrix
+    L, beta, nt, n_stab, W = 16, 8.0, 160, 5, 2
+    lat = square_lattice(L, L)
+    K = torch.as_tensor(build_kinetic_matrix(lat, 1.0, 0.0), device="cuda")
+    lam, V = torch.linalg.eigh(K)
+    G = (V / (1.0 + torch.exp(-beta * lam))) @ V.T      # exact G(0, 0)
+    eye = torch.eye(L * L, dtype=torch.float64, device="cuda")
+    dtau = beta / nt
+    # float32: the float32 err_warn.  The stabilized triplet's own float32
+    # floor at this shape is ~1e-3, in the JAX package too (its float32 tau
+    # sweep reads 2.8e-3 here on the CPU: scripts/tau_free_fermions.py)
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-2)):
+        model = AttractiveHubbard.build(lat, U=0.0, t=1.0, mu=0.0, beta=beta,
+                                        nt=nt, dtype=dtype, device="cuda")
+        cfg = EngineConfig(nt=nt, n_stab=n_stab)
+        states = init_state(model, cfg, make_generators(3, W, "cuda"))
+        rec = SimpleNamespace(tau=0, gap=0.0, ident=0.0)
+
+        def measure(Gtt, Gt0, G0t, G00):
+            for j in range(Gtt.shape[1]):
+                tau = rec.tau + j
+                # in the eigenbasis: e^{-tau K} and G apart would meet
+                # e^{+-beta |lambda|} in one product
+                gt0 = (V * (torch.exp(-tau * dtau * lam)
+                            / (1.0 + torch.exp(-beta * lam)))) @ V.T
+                rec.gap = max(rec.gap,
+                              float((Gt0[:, j].double() - gt0).abs().max()),
+                              float((Gtt[:, j].double() - G).abs().max()))
+                if tau in (0, nt):
+                    want = ((G - eye, G) if tau == 0 else (-G, eye - G))
+                    rec.ident = max(
+                        rec.ident,
+                        float((G0t[:, j].double() - want[0]).abs().max()),
+                        float((Gt0[:, j].double() - want[1]).abs().max()))
+            rec.tau += Gtt.shape[1]
+            return {}
+        _cuda.reset_launch_counts()
+        _, err = sweep_unequal_time(model, cfg, states, measure_fn=measure)
+        torch.cuda.synchronize()
+        k1 = _cuda.LAUNCHES["cgs2_qr"]
+        TOTALS.update(_cuda.LAUNCHES)
+        say(f"phase 17: (a) free fermions {L}x{L} beta={beta:g} nt={nt} "
+            f"n_stab={n_stab} W={W} {str(dtype)[6:]}: {rec.tau} taus, max "
+            f"|Gt0 - exact|, |Gtt - G| {rec.gap:.3e}, boundary identities "
+            f"{rec.ident:.3e} (<= {tol:.0e}), self-check "
+            f"{float(err.max()):.3e}, K1 launches {k1}")
+        if not (rec.tau == nt + 1 and max(rec.gap, rec.ident) <= tol):
+            fail(f"free-fermion tau sweep ({dtype})")
+        if dtype == torch.float32 and not k1:
+            fail("K1 did not launch inside the float32 tau sweep")
+
+
+# the stride of phase 17's gated float32 runs of examples/repulsive_spin:
+# at the example's n_stab = 10 the float32 naive-vs-stabilized error is
+# O(1) (phase 4 cuts examples/basic's n_stab from 10 to 2 for the same
+# reason), and the tau sweep shares those numerics
+TAU_GATED_N_STAB = 2
+
+
+def tau_headline(torch):
+    """(b) the headline with isMeasureUnequalTime, measure_spin and
+    measure_charge through run_simulation on the fused engine, 2 + 3
+    pairs: in float32 its rate and err_uneq_max (printed: absolute, and
+    max|G| reaches ~190 here), and the float32 tau sweep of the final
+    fields against the float64 one at the same n_stab, gated per walker
+    over its max|G| (hold_tau, TAU_F32_REL), then one more measured
+    iteration and its tau sweep alone under torch.profiler; then the same
+    configuration in float64 on the fused engine for 1 + 1 pairs,
+    err_uneq_max < 1e-6 (the float64 err_warn)."""
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.engine.fused import sweep_pair_fused
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.engine.uneqtime import sweep_unequal_time
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.measure.manager import MeasurementManager
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    summary = run_tau(torch, HEADLINE_UNEQ, "headline 16x16 beta=8 nt=160 "
+                      "n_stab=5 W=16 f32 with isMeasureUnequalTime, spin and "
+                      "charge sets, 2 + 1x3 pairs",
+                      ("cgs2_qr", "fused_wrap", "fused_sites"), ("cgs2_qr",),
+                      "phase 17")
+    say(f"phase 17: (b) headline with tau measurement: "
+        f"{summary.sweeps_per_sec:.4f} walker-sweep-pairs/s (phase 5: the "
+        f"same shape without it), err_uneq_max {summary.err_uneq_max:.3e} "
+        f"(absolute; gated below over max|G|)")
+    params = Parameters.from_string(HEADLINE_UNEQ)
+    lat = square_lattice(16, 16)
+    model = AttractiveHubbard.from_params(params, lat, dtype=torch.float32,
+                                          device="cuda")
+    cfg = EngineConfig(nt=params.get_int("simulation", "nt"),
+                       n_stab=params.get_int("simulation", "n_stab"))
+    hold_tau(torch, "phase 17", "(b) headline", summary.states, model, cfg,
+             params)
+    manager = MeasurementManager(lat, n_walkers=16, out_dir=None,
+                                 device="cuda", measure_unequal=True)
+    manager.add_defaults()
+    manager.add_spin()
+    manager.add_charge()
+    emit = manager.uneq_measure_fn
+
+    def tau_sweep(s):
+        return sweep_unequal_time(model, cfg, s, measure_fn=emit)
+
+    def iteration(s):
+        s = sweep_pair_fused(model, cfg, s)
+        manager.increments(s.G, uneq=tau_sweep(s))
+        return s
+    busy_it, _ = _profiled(torch, "headline, one measured iteration (pair, "
+                           "tau sweep, measurement)", iteration,
+                           summary.states, 1, phase="phase 17", cpu=False,
+                           unit="measured iteration")
+    busy_tau, _ = _profiled(torch, "headline, the tau sweep alone",
+                            lambda s: (tau_sweep(s), s)[1], summary.states, 1,
+                            phase="phase 17", cpu=False, unit="tau sweep")
+    say(f"phase 17: (b) the tau sweep's share of a measured iteration's "
+        f"device busy time: {busy_tau / max(busy_it, 1e-12):.3f}")
+    # 1 + 1 pairs: float64 QR makes a pair ~8 s here
+    text = HEADLINE_UNEQ + ("[simulation]\ndtype = float64\nengine = fused\n"
+                            "n_therms = 1\nn_sweeps = 1\n")
+    summary = run_tau(torch, text, "headline in float64 on the fused engine "
+                      "with isMeasureUnequalTime, 1 + 1x1 pairs",
+                      ("fused_wrap", "fused_sites"), (), "phase 17")
+    say(f"phase 17: (b) headline in float64: err_uneq_max "
+        f"{summary.err_uneq_max:.3e} (< 1e-6)")
+    if not summary.err_uneq_max < 1e-6:
+        fail("headline tau sweep self-check above the float64 err_warn")
+
+
+REPULSIVE_SPIN_CUT = dict(n_therms=20, n_bins=2, n_sweeps=5)
+
+
+def tau_repulsive_spin(torch):
+    """(d) examples/repulsive_spin through the CLI's main() (run_simulation
+    with no output directory where h5py is missing) with its sweep counts
+    cut: #2b + K1; at its n_stab = 10 the signs and err_uneq_max are
+    printed (the float32 envelope), at n_stab = TAU_GATED_N_STAB every
+    sign must stay +1 and err_uneq_max below 1e-2.  (c) On the final
+    fields in float64: spinzzTau(0) = spinZZCorr, spinxxTau(0) =
+    spinXXCorr, densityTau(0) = the textbook densityCorr (<= 1e-12)."""
+    import importlib.util
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.measure import observables as obs
+    from dqmc_tpu_torch.measure.context import make_context
+    from dqmc_tpu_torch.run import main as cli_main, run_simulation
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    how = "the CLI" if has_h5py else "run_simulation, no h5py here"
+    cwd = os.getcwd()
+    for n_stab in (None, TAU_GATED_N_STAB):
+        params = Parameters(str(REPO / "examples" / "repulsive_spin" /
+                                "parameters.in"))
+        cut = dict(REPULSIVE_SPIN_CUT, **({} if n_stab is None
+                                          else dict(n_stab=n_stab)))
+        for key, val in cut.items():
+            params.set("simulation", key, val)
+        with tempfile.TemporaryDirectory() as tmp, TauLaunches() as tau:
+            (Path(tmp) / "parameters.in").write_text(params.dumps())
+            os.chdir(tmp)
+            try:
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                summary = (cli_main(["--device", "cuda"]) if has_h5py else
+                           run_simulation(params, out_dir=None,
+                                          device="cuda"))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+                TOTALS.update(_cuda.LAUNCHES)
+            finally:
+                os.chdir(cwd)
+        gate = ("(< 1e-2; signs +1)" if n_stab
+                else "(the float32 envelope, not gated)")
+        say(f"phase 17: (d) examples/repulsive_spin "
+            f"({', '.join(f'{k}={v}' for k, v in cut.items())}) in "
+            f"{dt:.1f} s ({how}): launches {launches}, inside the tau "
+            f"sweeps {dict(tau.counts)}, signs {summary.walker_signs}, "
+            f"err_uneq_max {summary.err_uneq_max:.3e} {gate}, self-check "
+            f"max {summary.max_precision_error:.3e}, "
+            + ", ".join(f"{k} {v:.5f}"
+                        for k, v in summary.observables.items()))
+        if not (launches.get("fused_sites_2f") and launches.get("cgs2_qr")
+                and tau.counts["cgs2_qr"]):
+            fail("repulsive_spin: #2b or K1 (in the tau sweep) not launched")
+        # at the example's n_stab = 10 the float32 error (~1e2) flips
+        # signs even at half filling: gated at TAU_GATED_N_STAB only
+        if n_stab and any(s != 1.0 for s in summary.walker_signs):
+            fail("repulsive_spin: a sign left +1 at half filling")
+        if n_stab and not summary.err_uneq_max < 1e-2:
+            fail("repulsive_spin: tau sweep self-check above 1e-2")
+    # (c) the tau = 0 identities on these fields, in float64
+    _, _, states = f64_states(torch, params, summary.states.fields,
+                              params.get_int("simulation", "n_stab"))
+    G = states.G
+    ctx = make_context(make_lattice_of(params), "cuda")
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device="cuda")
+    gap = {}
+    for tau_fn, eq_fn in ((obs.spinzz_tau, obs.spin_zz_corr),
+                          (obs.spinxx_tau, obs.spin_xx_corr)):
+        gap[tau_fn.__name__] = float(
+            (tau_fn(G, G, G - eye, G, ctx) - eq_fn(G, ctx)).abs().max())
+    g = G.transpose(0, 1)                        # (flavor, W, ns, ns)
+    n = sum(1.0 - torch.diagonal(x, dim1=-2, dim2=-1) for x in g)
+    text = (n[:, :, None] * n[:, None, :]
+            + sum((eye - x.transpose(-1, -2)) * x for x in g)
+            - (n.mean(-1) ** 2)[:, None, None])
+    gap["density_tau"] = float(
+        (obs.density_tau(G, G, G - eye, G, ctx) - text).abs().max())
+    say(f"phase 17: (c) tau = 0 identities in float64 on these fields "
+        f"(max|G| {float(G.abs().max()):.3e}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()) + " (<= 1e-12)")
+    if max(gap.values()) > 1e-12:
+        fail("a tau observable at tau = 0 differs from its equal-time form")
+
+
+def make_lattice_of(params):
+    from dqmc_tpu_torch.lattice import make_lattice
+    return make_lattice(params.get_str("Lattice", "geometry", "square"),
+                        params.get_int("Lattice", "L1"),
+                        params.get_int("Lattice", "L2"))
+
+
+def tau_df32(torch):
+    """(d) the df32 headline with isMeasureUnequalTime, 1 + 1 pairs: #3,
+    K1 and #7 in the engine, the float32 tau sweep on the walkers' float32
+    view (K1 inside it); its err_uneq_max (printed) and its triplet
+    against the float64 tau sweep of the final fields at the same n_stab,
+    gated per walker over its max|G| as in (b)."""
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    text = HEADLINE_DF32 + ("[simulation]\nisMeasureUnequalTime = true\n"
+                            "measure_spin = true\nmeasure_charge = true\n")
+    summary = run_tau(torch, text, "df32 headline with isMeasureUnequalTime, "
+                      "1 + 1 pairs", ("df_qr_panel", "cgs2_qr",
+                                      "delayed_slice"), ("cgs2_qr",),
+                      "phase 17")
+    say(f"phase 17: (d) df32 headline: err_uneq_max "
+        f"{summary.err_uneq_max:.3e} (absolute; gated below over max|G|)")
+    params = Parameters.from_string(text)
+    model = AttractiveHubbard.from_params(params, make_lattice_of(params),
+                                          dtype=torch.float32, device="cuda")
+    cfg = EngineConfig(nt=params.get_int("simulation", "nt"),
+                       n_stab=params.get_int("simulation", "n_stab"))
+    hold_tau(torch, "phase 17", "(d) df32 headline on f32_view",
+             summary.states, model, cfg, params, f32_view=True)
+
+
+def phase_tau(torch):
+    """Phase 17: the engine-grade tau path (engine/uneqtime.py)."""
+    tau_free_fermions(torch)
+    tau_headline(torch)
+    tau_repulsive_spin(torch)
+    tau_df32(torch)
 
 
 def print_registers() -> None:
@@ -2344,7 +2943,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "tf_qr_panel": ("dqmc_tpu_torch/csrc/mw_qr_panel.cu",
                     "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 
 
 def main(argv=None) -> None:
@@ -2403,7 +3002,8 @@ def main(argv=None) -> None:
              (13, lambda: phase_fused_submatrix(torch, card)),
              (14, lambda: phase_mw_panels(torch, gen14, report)),
              (15, lambda: phase_df32_headline(torch)),
-             (16, lambda: phase_tier_split(torch)))
+             (16, lambda: phase_tier_split(torch)),
+             (17, lambda: phase_tau(torch)))
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

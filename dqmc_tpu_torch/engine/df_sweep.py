@@ -305,3 +305,25 @@ def df_sweep_pair(model32, aux: DFModelAux, cfg: EngineConfig,
     fwd, bwd = streams if streams is not None else (None, None)
     states = df_sweep(model32, aux, cfg, states, forward=True, streams=fwd)
     return df_sweep(model32, aux, cfg, states, forward=False, streams=bwd)
+
+
+def f32_view(states: DFWalkerState):
+    """The float32 ``WalkerState`` of df walkers: the hi words of the
+    stack's L and R, and the exponent-split scale ladder linearized under
+    the float32 log clamp (e^+-60, ``ops/linalg._log_clamp``; beyond it the
+    view saturates either way).  The float32 unequal-time sweep runs on it:
+    its triplets start from df-accurate factors, so the tau data carries
+    float32 reconstruction noise but none of a float32 chain's drift."""
+    from dqmc_tpu_torch.engine.state import WalkerState
+    from dqmc_tpu_torch.ops.linalg import LDR
+    dm = states.stack.d.hi
+    log_d = (torch.log(torch.where(dm == 0, torch.ones_like(dm), dm))
+             + 0.6931471805599453 * states.stack.e.float())
+    d32 = torch.where(dm == 0, torch.zeros_like(dm),
+                      torch.exp(torch.clamp(log_d, -60.0, 60.0)))
+    return WalkerState(
+        fields=states.fields, G=states.G,
+        stack=LDR(states.stack.L.hi, d32, states.stack.R.hi),
+        log_det_M=states.log_det_M, gens=states.gens,
+        acc_sum=states.acc_sum, sign=states.sign, err_max=states.err_max,
+        err_sum=states.err_sum, err_count=states.err_count)

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``dqmc_tpu/measure/context.py``.  The Lattice object
 is host-side numpy; ``MeasurementContext`` packages the site-pair ->
-displacement index vector (on the device) and the DFT phases (on the host,
-where the manager transforms bins to momentum space).
+displacement index vector and the +x neighbour map (on the device) and the
+DFT phases (on the host, where the manager transforms bins to momentum
+space).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class MeasurementContext:
     # (L1, L2, n_orb^2) displacement array: (dx*L2 + dy)*no^2 + a*no + b
     pair_cols: torch.Tensor
     phases: np.ndarray          # (L1, L2, L1, L2) complex exp(-i k . r)
+    nbr_x: torch.Tensor         # (ns,) +x neighbour of each site (currxx)
 
     @property
     def n_disp(self) -> int:
@@ -60,4 +62,6 @@ def make_context(lat: Lattice, device="cpu") -> MeasurementContext:
         n_sites=lat.n_sites,
         pair_cols=torch.as_tensor(pair_cols_vector(lat), device=device),
         phases=lat.kspace_phases(),
+        nbr_x=torch.as_tensor(lat.neighbor_map((1, 0), orb=0),
+                              dtype=torch.int64, device=device),
     )

@@ -29,6 +29,19 @@ def site_to_r_batched(chis: torch.Tensor,
         lead + (ctx.L1, ctx.L2, ctx.n_orb * ctx.n_orb))
 
 
+def site_to_r_all(vals: dict, ctx: MeasurementContext) -> dict:
+    """dict name -> site-pair array (..., ns, ns), each reduced to
+    (..., L1, L2, n_orb^2); arrays of one shape share one reduction (the
+    per-tau emit's observables go through a single ``index_add_``)."""
+    out, by_shape = {}, {}
+    for name, v in vals.items():
+        by_shape.setdefault(tuple(v.shape), []).append(name)
+    for names in by_shape.values():
+        red = site_to_r_batched(torch.stack([vals[n] for n in names]), ctx)
+        out.update(zip(names, red))
+    return {name: out[name] for name in vals}
+
+
 def site_to_r(chi: torch.Tensor, ctx: MeasurementContext) -> torch.Tensor:
     """chi (ns, ns) or (ns, ns, S) -> (L1, L2, n_orb^2 * S)."""
     if chi.dim() == 2:

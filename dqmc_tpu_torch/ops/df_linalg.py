@@ -12,7 +12,9 @@ dense intermediate carries it.
 
 Solves against the equilibrated middle matrix use a float32 QR (K1,
 ``ops/qr_kernel.cgs2_qr``, on CUDA; Householder on the CPU) plus multiword
-iterative refinement that keeps the best-residual iterate.
+iterative refinement that keeps the best-residual iterate; the
+unequal-time triplet (``inv_triplet_dag``) also solves against its
+transpose with the same factors.
 """
 
 from __future__ import annotations
@@ -200,45 +202,58 @@ def _f32_qr(A: torch.Tensor):
     return torch.linalg.qr(A)
 
 
-def _solve_refined(Mdf, Y, nm=df32):
+def _solve_refined(Mdf, Y, nm=df32, Yt=None):
     """X = M^{-1} Y and log|det M| via a float32 QR and multiword iterative
     refinement (3 steps for df32, 8 for tf32), returning the iterate with
     the smallest max|Y - M X| per system (the refinement amplifies the
     error once eps32 cond(M) >= 1; the best iterate bounds it at the seed).
     log|det M| = log|det R'| - log|det Q| with R' = Q^T M and Q^T Q = I + E
-    in multiword (det Q is not 1 at float32 grade)."""
+    in multiword (det Q is not 1 at float32 grade).
+
+    ``Yt``: a second right-hand side solved against M^T with the same
+    float32 factors (M^T x = y => x = Q R^{-T} y), refined against the
+    multiword M^T -- the role-swapped solve of the unequal-time triplet.
+    Returns (X, logabs, Xt) with it, (X, logabs) without."""
     n_ir = 3 if nm is df32 else 8
     Q, R = _f32_qr(Mdf.hi)
     QT32 = Q.transpose(-1, -2)
 
-    def solve(rhs32):
-        return torch.linalg.solve_triangular(R, QT32 @ rhs32, upper=True)
+    def refine(M, rhs, solve):
+        X = nm.df(solve(rhs.hi))
+        best_X, best_n = X, None
+        for k in range(n_ir + 1):
+            r = nm.sub(rhs, nm.matmul(M, X))
+            rn = torch.amax(torch.abs(r.hi), dim=(-2, -1), keepdim=True)
+            if best_n is None:
+                best_X, best_n = X, rn
+            else:
+                better = rn < best_n
+                best_X = nm.cmap(lambda c, b: torch.where(better, c, b), X,
+                                 best_X)
+                best_n = torch.minimum(rn, best_n)
+            if k < n_ir:
+                X = nm.add(X, nm.df(solve(r.hi)))
+        return best_X
 
-    X = nm.df(solve(Y.hi))
-    best_X, best_n = X, None
-    for k in range(n_ir + 1):
-        r = nm.sub(Y, nm.matmul(Mdf, X))
-        rn = torch.amax(torch.abs(r.hi), dim=(-2, -1), keepdim=True)
-        if best_n is None:
-            best_X, best_n = X, rn
-        else:
-            better = rn < best_n
-            best_X = nm.cmap(lambda c, b: torch.where(better, c, b), X,
-                             best_X)
-            best_n = torch.minimum(rn, best_n)
-        if k < n_ir:
-            X = nm.add(X, nm.df(solve(r.hi)))
+    best_X = refine(Mdf, Y, lambda rhs32: torch.linalg.solve_triangular(
+        R, QT32 @ rhs32, upper=True))
     Rref = nm.matmul(nm.df(QT32), Mdf)
     E_diag = _diag(nm.matmul(nm.df(QT32), nm.df(Q)))
     log_q = 0.5 * torch.sum(nm.to_f64(E_diag) - 1.0, dim=-1)
     logabs = torch.sum(torch.log(torch.abs(nm.to_f64(_diag(Rref)))),
                        dim=-1) - log_q
-    return best_X, logabs
+    if Yt is None:
+        return best_X, logabs
+    RT = R.transpose(-1, -2)
+    Xt = refine(transpose(Mdf), Yt, lambda rhs32: Q @ (
+        torch.linalg.solve_triangular(RT, rhs32, upper=False)))
+    return best_X, logabs, Xt
 
 
 def _middle_matrix(F1: LDRdf, F2t: LDRdf, nm=df32):
     """M = D1l^-1 (L1^T L2) D2l^-1 + D1s (R1 R2^T) D2s, range-safe, with
-    the pieces every dag inverse assembles G from."""
+    the pieces every dag inverse assembles G from: the scale splits
+    (d_small, 1 / d_large) of both factors and log(D1l D2l)."""
     inv_d1l, d1s, lm1, le1 = _split_scales(F1.d, F1.e, nm=nm)
     inv_d2l, d2s, lm2, le2 = _split_scales(F2t.d, F2t.e, nm=nm)
     L1T = transpose(F1.L)
@@ -253,15 +268,45 @@ def _middle_matrix(F1: LDRdf, F2t: LDRdf, nm=df32):
     log_dl = (torch.sum(lm1, dim=-1) + torch.sum(lm2, dim=-1)
               + _LN2 * (torch.sum(le1, dim=-1)
                         + torch.sum(le2, dim=-1)).to(lm1.dtype))
-    return M, L1T, inv_d1l, inv_d2l, log_dl
+    return M, L1T, (d1s, inv_d1l), (d2s, inv_d2l), log_dl
 
 
 def inv_one_plus_ldr_dag(F1: LDRdf, F2t: LDRdf, nm=df32):
     """G = [I + F1 F2t^T]^{-1} and log|det|, multiword: the dag
     (transpose-suffix) formulation, G = (L2 / d2l) M^{-1} (L1^T / d1l)."""
-    M, L1T, inv_d1l, inv_d2l, log_dl = _middle_matrix(F1, F2t, nm=nm)
+    M, L1T, (_, inv_d1l), (_, inv_d2l), log_dl = _middle_matrix(F1, F2t,
+                                                                 nm=nm)
     shape = L1T.hi.shape
     Y = nm.mul(L1T, _bcast_col(inv_d1l, shape))
     X, logabs = _solve_refined(M, Y, nm=nm)
     W2 = nm.mul(F2t.L, _bcast_row(inv_d2l, shape))
     return nm.matmul(W2, X), log_dl + logabs
+
+
+def inv_triplet_dag(F1: LDRdf, F2t: LDRdf, nm=df32):
+    """The unequal-time triplet at multiword grade (the twin of
+    ``ops/linalg.inv_triplet_dag``), with B1 = F1 (normal form, B(tau, 0))
+    and B2 = F2t_matrix^T (transpose form, B(beta, tau)):
+
+        Gtt = [I + B1 B2]^{-1}         G = (L2/d2l) M^{-1} (L1^T/d1l)
+        Gt0 = [B1^{-1} + B2]^{-1}      G = (L2/d2l) M^{-1} (D1s R1)
+        G0t = -[B2^{-1} + B1]^{-1}     through M^T (the role swap)
+
+    One float32 factorization of M serves all three: Gtt and Gt0 refine
+    two stacked right-hand sides against M, G0t refines against M^T with
+    the same factors.  Returns (Gtt, Gt0, G0t, log|det(I + B1 B2)|)."""
+    M, L1T, (d1s, inv_d1l), (d2s, inv_d2l), log_dl = _middle_matrix(
+        F1, F2t, nm=nm)
+    shape = L1T.hi.shape
+    n = shape[-1]
+    Ytt = nm.mul(L1T, _bcast_col(inv_d1l, shape))
+    Yt0 = nm.mul(F1.R, _bcast_col(d1s, shape))
+    Y = nm.cmap(lambda a, b: torch.cat([a, b], dim=-1), Ytt, Yt0)
+    Y0t = nm.mul(F2t.R, _bcast_col(d2s, shape))
+    X, logabs, Xt = _solve_refined(M, Y, nm=nm, Yt=Y0t)
+    W2 = nm.mul(F2t.L, _bcast_row(inv_d2l, shape))
+    Gtt = nm.matmul(W2, nm.cmap(lambda c: c[..., :n], X))
+    Gt0 = nm.matmul(W2, nm.cmap(lambda c: c[..., n:], X))
+    W1 = nm.mul(F1.L, _bcast_row(inv_d1l, shape))
+    G0t = transpose(nm.neg(nm.matmul(W1, Xt)))
+    return Gtt, Gt0, G0t, log_dl + logabs

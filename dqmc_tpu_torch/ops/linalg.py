@@ -10,8 +10,9 @@ a well-conditioned R.  Every function takes any leading batch axes.
   are re-attached in the log domain with a clamp at e^+-60 (f32) / e^+-600
   (f64).
 - The engine stores suffix products in TRANSPOSE form and uses only the
-  "dag" stabilized inverse, whose inputs stay column-graded and f32-safe
-  (see the JAX module's notes).
+  "dag" stabilized inverses, whose inputs stay column-graded and f32-safe
+  (see the JAX module's notes); ``inv_triplet_dag`` gives the unequal-time
+  triplet from one factorization of their shared middle matrix.
 
 Orthogonalization backend for float32: the CGS2 kernel
 (``ops/qr_kernel.py``) on a CUDA tensor, Householder ``torch.linalg.qr``
@@ -174,3 +175,72 @@ def inv_one_plus_ldr_dag(F1: LDR, F2t: LDR) -> Tuple[torch.Tensor,
                + torch.sum(torch.log(d2l), dim=-1) + logabs)
     G = (F2t.L / d2l[..., None, :]) @ X
     return G, log_det
+
+
+def inv_invldr_plus_ldr_dag(F1: LDR, F2t: LDR) -> torch.Tensor:
+    """G = [B1^{-1} + B2]^{-1} with B1 = F1 and B2 = F2t_matrix^T, on the
+    same middle matrix M as inv_one_plus_ldr_dag:
+
+      B1^{-1} + B2 = R1^{-1} D1s^{-1} M D2l L2^T
+      G = L2 D2l^{-1} M^{-1} D1s R1.
+
+    By [X^{-1} + Y]^{-1} = ([X^{-T} + Y^T]^{-1})^T the role-swapped call
+    gives G0t = -inv_invldr_plus_ldr_dag(F2t, F1)^T.  Kept as the JAX
+    package's API has it; the tau sweep takes all three from
+    ``inv_triplet_dag``."""
+    d1l, d1s = _split_scales(F1.d)
+    d2l, d2s = _split_scales(F2t.d)
+    L1T = F1.L.transpose(-1, -2)
+    R2T = F2t.R.transpose(-1, -2)
+    M = ((L1T @ F2t.L) / d1l[..., :, None] / d2l[..., None, :]
+         + (d1s[..., :, None] * (F1.R @ R2T)) * d2s[..., None, :])
+    Y = d1s[..., :, None] * F1.R
+    X, _ = _qr_solve_logdet(M, Y)
+    return (F2t.L / d2l[..., None, :]) @ X
+
+
+def inv_triplet_dag(F1: LDR, F2t: LDR):
+    """The unequal-time triplet from ONE factorization of the middle
+    matrix, with B1 = F1 (normal form, B(tau, 0)) and B2 = F2t_matrix^T
+    (transpose form, B(beta, tau)):
+
+        Gtt = [I + B1 B2]^{-1}        (dqmc.cpp:264-280)
+        Gt0 = [B1^{-1} + B2]^{-1}     (stablelinalg.cpp:160-190)
+        G0t = -[B2^{-1} + B1]^{-1}
+
+    Gtt and Gt0 share M and solve together with two stacked right-hand
+    sides; the role-swapped G0t is a solve against M^T with the same
+    factors (M = QR: M^T x = y => x = Q R^{-T} y).  float32 in cgs2 mode:
+    K1 with its in-kernel W = R^{-1}, X = W (Q^T Y) and Xt = Q (W^T Y0t);
+    otherwise Householder QR and two triangular solves.  Returns
+    (Gtt, Gt0, G0t, log|det(I + B1 B2)|)."""
+    d1l, d1s = _split_scales(F1.d)
+    d2l, d2s = _split_scales(F2t.d)
+    L1T = F1.L.transpose(-1, -2)
+    R2T = F2t.R.transpose(-1, -2)
+    M = ((L1T @ F2t.L) / d1l[..., :, None] / d2l[..., None, :]
+         + (d1s[..., :, None] * (F1.R @ R2T)) * d2s[..., None, :])
+    n = F1.n
+    Y = torch.cat([L1T / d1l[..., :, None], d1s[..., :, None] * F1.R],
+                  dim=-1)
+    Y0t = d2s[..., :, None] * F2t.R
+    if M.dtype == torch.float32 and _f32_mode(M) == "cgs2":
+        from dqmc_tpu_torch.ops.qr_kernel import cgs2_qr_inv
+        Q, R, Wi = cgs2_qr_inv(M)
+        X = Wi @ (Q.transpose(-1, -2) @ Y)
+        Xt = Q @ (Wi.transpose(-1, -2) @ Y0t)
+    else:
+        Q, R = torch.linalg.qr(M)
+        X = torch.linalg.solve_triangular(R, Q.transpose(-1, -2) @ Y,
+                                          upper=True)
+        Xt = Q @ torch.linalg.solve_triangular(R.transpose(-1, -2), Y0t,
+                                               upper=False)
+    logabs = torch.sum(torch.log(torch.abs(
+        torch.diagonal(R, dim1=-2, dim2=-1))), dim=-1)
+    log_det = (torch.sum(torch.log(d1l), dim=-1)
+               + torch.sum(torch.log(d2l), dim=-1) + logabs)
+    W2 = F2t.L / d2l[..., None, :]
+    Gtt = W2 @ X[..., :n]
+    Gt0 = W2 @ X[..., n:]
+    G0t = -((F1.L / d1l[..., None, :]) @ Xt).transpose(-1, -2)
+    return Gtt, Gt0, G0t, log_det

@@ -13,6 +13,12 @@ spinZZCorr and spinXXCorr with ``measure_spin = true``, sign-weighted with
 a ``sign`` scalar for the repulsive model, binned HDF5 output that
 ``python -m dqmc_tpu.analysis`` reads and reweights.
 
+``isMeasureUnequalTime = true`` runs the unequal-time sweep after every
+measured sweep pair (``engine/uneqtime.py``, K1 in every block-end triplet
+in float32) and bins greenTau, doublonTau and currxxTau, plus spinzzTau and
+spinxxTau with ``measure_spin`` and densityTau with ``measure_charge``; on
+the df32 engine it runs on the walkers' float32 view (``f32_view``).
+
 ``[simulation] dtype = df32`` runs the hybrid double-float32 engine
 (``engine/df_sweep.py``: the per-slice engine's float32 site updates and
 wraps, df32 block products, folds and stabilized inverses, with panel
@@ -20,6 +26,9 @@ kernel #7 in every fold).  ``measure_precision = df32 | tf32`` measures
 every equal-time observable on a Green's function rebuilt from the fields
 at that multiword grade (``engine/parity.py``; #7 or #8 in every fold),
 whatever the sampling engine; ``measure_n_stab`` sets the rebuild's stride.
+With unequal-time measurement on, the tier rebuilds the whole tau-resolved
+triplet instead (``measurement_uneq_fn``, stride ``measure_uneq_n_stab``),
+and its G00 is the equal-time measurement's G.
 
 ``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
 when it supports the model (ns <= 512, dense kinetics, rank-k buffers that
@@ -48,13 +57,16 @@ import torch
 
 from dqmc_tpu_torch.config import Parameters
 from dqmc_tpu_torch.engine.df_sweep import (df_aux_build, df_sweep_pair,
-                                            init_state_df, rebuild_stack_df)
+                                            f32_view, init_state_df,
+                                            rebuild_stack_df)
 from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
 from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
 from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
                                          rebuild_stack_and_greens,
                                          reset_error_stats, sweep_pair)
-from dqmc_tpu_torch.engine.parity import measurement_greens_fn
+from dqmc_tpu_torch.engine.parity import (measurement_greens_fn,
+                                          measurement_uneq_fn)
+from dqmc_tpu_torch.engine.uneqtime import sweep_unequal_time
 from dqmc_tpu_torch.lattice import bonds_with_tp, make_lattice
 from dqmc_tpu_torch.measure.manager import MeasurementManager
 from dqmc_tpu_torch.models import MODEL_REGISTRY
@@ -66,9 +78,6 @@ def _unported(params: Parameters):
     get_s, get_b, get_i = params.get_str, params.get_bool, params.get_int
     return [
         (what, item) for on, what, item in [
-            (get_b("simulation", "isMeasureUnequalTime", False),
-             "isMeasureUnequalTime = true (and with it the tau-resolved "
-             "spin and charge sets)", "slice 2, engine/uneqtime.py"),
             (get_b("ParallelTempering", "enabled", False),
              "parallel tempering", "slice 3, parallel/tempering.py"),
             (get_i("walkers", "n_devices", 0) > 1, "n_devices > 1",
@@ -79,8 +88,6 @@ def _unported(params: Parameters):
              "checkpointing", "slice 2, io/checkpoint.py"),
             (get_b("hubbard", "checkerboard", False),
              "checkerboard kinetics", "slice 3, other models"),
-            (get_b("simulation", "measure_charge", False), "measure_charge",
-             "slice 2, engine/uneqtime.py and observables"),
             (get_s("simulation", "wrap_precision", "highest") != "highest",
              "wrap_precision other than highest",
              "not to port (TPU MXU-pass knob)"),
@@ -180,6 +187,10 @@ class RunSummary:
     therm_max_precision_error: float
     n_stab: int                    # final (possibly auto-adapted) value
     device: str
+    # the unequal-time sweep's largest self-check deviation over the
+    # measured bins (0.0 without unequal-time measurement); folded into
+    # max_precision_error
+    err_uneq_max: float = 0.0
     # scalar observables averaged over walkers and bins
     observables: dict = dataclasses.field(default_factory=dict)
     # each walker's Metropolis sign at the end (all +1 for sign-free models)
@@ -285,11 +296,16 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     gens = make_generators(seed, n_walkers, device)
     states = (init_state_df(model, aux, cfg, gens) if df_mode
               else init_state(model, cfg, gens))
-    manager = MeasurementManager(lat, n_walkers=n_walkers, out_dir=out_dir,
-                                 device=device)
+    manager = MeasurementManager(
+        lat, n_walkers=n_walkers, out_dir=out_dir, device=device,
+        measure_unequal=params.get_bool("simulation",
+                                        "isMeasureUnequalTime", False))
     manager.add_defaults()
     if params.get_bool("simulation", "measure_spin", False):
         manager.add_spin()
+    if params.get_bool("simulation", "measure_charge", False):
+        manager.add_charge()
+    uneq_fn = manager.uneq_measure_fn
 
     # the reference warns when the naive-vs-stabilized deviation exceeds
     # 1e-6 (dqmc.cpp:390-393); the f32 default reflects the single-precision
@@ -312,23 +328,43 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
 
     model64 = None
     meas_stab = params.get_int("simulation", "measure_n_stab", 0)
+    uneq_stab = params.get_int("simulation", "measure_uneq_n_stab", 0)
 
-    def measurement_tier(cfg):
-        """The multiword greens_fn for ``measure_precision`` (None for
-        engine), rebuilt whenever n_stab changes."""
+    def measured_fns(cfg):
+        """(greens_fn, uneq_step) of the measurement phase for one n_stab
+        value, rebuilt whenever it changes: the multiword tier's greens_fn
+        (None for ``measure_precision = engine``), and the unequal-time
+        step (None without unequal-time measurement), ``states -> (ys,
+        err, G)``, G the tier's G00, which then is the equal-time G, or
+        None on the engine-grade path."""
         nonlocal model64
         if measure_prec == "engine":
-            return None
+            if uneq_fn is None:
+                return None, None
+            view = f32_view if df_mode else (lambda s: s)
+            return None, lambda s: (*sweep_unequal_time(
+                model, cfg, view(s), measure_fn=uneq_fn, warp=symmetric),
+                None)
         if model64 is None:
             model64 = model_cls.from_params(params, lat, dtype=torch.float64,
                                             device=device)
+        nm = tf32 if measure_prec == "tf32" else df32
+        if uneq_fn is not None:
+            step_u = measurement_uneq_fn(
+                model64, cfg, nm, uneq_fn, symmetric=symmetric,
+                n_stab=uneq_stab if uneq_stab > 0 else None,
+                emit_greens=True)
+            log(f"Measurement tier: tau-resolved Gtt/Gt0/G0t and the "
+                f"equal-time G rebuilt at {measure_prec} (stride "
+                f"{step_u.n_stab})")
+            return None, step_u
         fn = measurement_greens_fn(
-            model64, cfg, tf32 if measure_prec == "tf32" else df32,
-            symmetric=symmetric, n_stab=meas_stab if meas_stab > 0 else None)
+            model64, cfg, nm, symmetric=symmetric,
+            n_stab=meas_stab if meas_stab > 0 else None)
         log(f"Measurement tier: equal-time G rebuilt at {measure_prec} "
             f"({'<1e-10' if measure_prec == 'tf32' else '~1e-8'} "
             f"fixed-field accuracy)")
-        return fn
+        return fn, None
 
     def chunk_err_mean(states):
         s = _stats(states)
@@ -374,37 +410,41 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     states = reset_error_stats(states)
 
     t0 = time.perf_counter()
-    greens_fn = measurement_tier(cfg)
+    greens_fn, uneq_step = measured_fns(cfg)
     warp = (lambda G: half_warp(model, G)) if symmetric else None
-    meas_dtype = torch.float64 if greens_fn is not None else dtype
+    err_uneq_max = 0.0
     for ibin in range(n_bins):
-        acc = manager.zero_acc(states.G.to(meas_dtype),
-                               states.sign if signed else None)
+        acc = {}
         for _ in range(n_sweeps):
             states = step(model, cfg, states)
-            G = manager.measurement_greens(states, greens_fn=greens_fn,
-                                           warp_fn=warp)
-            signs = states.sign if signed else None
-            for key, v in manager.increments(G, signs).items():
-                acc[key] += v
-        manager.ingest_bin(acc, n_sweeps)
+            uneq = G = None
+            if uneq_step is not None:
+                *uneq, G = uneq_step(states)
+            if G is None:
+                G = manager.measurement_greens(states, greens_fn=greens_fn,
+                                               warp_fn=warp)
+            manager.accumulate(acc, manager.increments(
+                G, states.sign if signed else None, uneq=uneq))
+        bin_err_uneq = manager.ingest_bin(acc, n_sweeps)
+        err_uneq_max = max(err_uneq_max, bin_err_uneq)
         if not warned:
-            cur_err = float(states.err_max.max())
+            cur_err = max(float(states.err_max.max()), bin_err_uneq)
             if cur_err > err_warn:
                 print(f"WARNING: GF precision {cur_err:.3e} exceeds "
                       f"{err_warn:.1e}. Reduce n_stab or increase nt.",
                       file=sys.stderr)
                 warned = True
-        # n_stab = auto in the measurement phase: tighten only
+        # n_stab = auto in the measurement phase: tighten only, on the
+        # sweeps' chunk error or the unequal-time sweep's self-check
         if n_stab_auto and cfg.n_stab > 1 and ibin + 1 < n_bins:
             err_mean = chunk_err_mean(states)
-            if err_mean > err_warn:
+            if max(err_mean, bin_err_uneq) > err_warn:
                 cfg = dataclasses.replace(cfg, n_stab=cfg.n_stab - 1)
-                log(f"n_stab auto (measurement): bin err {err_mean:.2e} "
-                    f"exceeds warn {err_warn:.0e} -> n_stab = "
-                    f"{cfg.n_stab}, stack reseated")
+                log(f"n_stab auto (measurement): bin err {err_mean:.2e} / "
+                    f"uneq {bin_err_uneq:.2e} exceeds warn {err_warn:.0e} "
+                    f"-> n_stab = {cfg.n_stab}, stack reseated")
                 states = reset_error_stats(reseat(states, cfg))
-                greens_fn = measurement_tier(cfg)
+                greens_fn, uneq_step = measured_fns(cfg)
                 warned = False
     _sync(device)
     dt_meas = time.perf_counter() - t0
@@ -415,7 +455,7 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     total = n_bins * n_sweeps
     stats = _stats(states)
     acc_rate = stats["acc_sum_mean"] / (2.0 * max(n_therms + total, 1))
-    err_max = stats["err_max"]
+    err_max = max(stats["err_max"], err_uneq_max)
     err_mean = stats["err_sum"] / max(stats["err_count"], 1)
     rate = total * n_walkers / dt_meas if dt_meas > 0 else float("inf")
     bins = manager.bin_scalars
@@ -435,8 +475,9 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         sweeps_per_sec=rate, acc_rate=acc_rate,
         max_precision_error=err_max, mean_precision_error=err_mean,
         therm_max_precision_error=therm_err_max, n_stab=cfg.n_stab,
-        device=str(device), observables=observables,
-        walker_signs=states.sign.tolist(), states=states)
+        device=str(device), err_uneq_max=err_uneq_max,
+        observables=observables, walker_signs=states.sign.tolist(),
+        states=states)
 
 
 def main(argv=None) -> RunSummary:

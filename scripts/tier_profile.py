@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where one tf32-tier measurement's device time goes, on the card.
+"""Where one tf32 tau-tier measurement's time goes, on the card.
 
-Runs chip_smoke.py's phase 16 -- examples/tpu_production's tier split: the
-fused float32 engine samples 16 walkers and every measurement rebuilds G
-from the fields at tf32 (#8 in every fold) -- and profiles one tier
-measurement of the 16 walkers (torch.profiler, device activity only):
-device busy, idle share and the kernels that take the most time, printed
-as phase 16 prints them.  The profile's ~1.3 million device operations
-take minutes to aggregate, which is why chip_smoke.py itself skips it.
+Runs chip_smoke.py's phase 16 at the example's 16 walkers --
+examples/tpu_production's tier split with unequal-time measurement: the
+fused float32 engine samples and every measurement rebuilds the
+tau-resolved triplet from the fields at tf32 (#8 in every fold, K1 in
+every refined solve) -- then times one tier measurement of the 16
+walkers alone (wall time, peak device memory) and profiles it
+(torch.profiler, device activity only): device busy, idle share and the
+kernels that take the most time, printed as phase 16 prints them.  The
+profile's millions of device operations take minutes to aggregate, which
+is why chip_smoke.py itself skips it.
 
     python3 scripts/tier_profile.py
 
@@ -36,7 +39,7 @@ def main() -> None:
     say(smi.stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    phase_tier_split(torch, profile=True)
+    phase_tier_split(torch, profile=True, walkers=16)
 
 
 if __name__ == "__main__":

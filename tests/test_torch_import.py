@@ -60,35 +60,19 @@ n_stab = 4
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("simulation", "isMeasureUnequalTime", "true"),
-    # the multiword engine and tiers are ported; their tau-resolved
-    # measurement still needs engine/uneqtime.py
-    ("simulation", "dtype", "df32+uneq"),
-    ("simulation", "measure_precision", "tf32+uneq"),
     ("ParallelTempering", "enabled", "true"),
     ("walkers", "n_devices", "2"),
     ("simulation", "checkpoint_every", "1"),
     ("hubbard", "checkerboard", "true"),
-    ("simulation", "measure_charge", "true"),
     ("simulation", "wrap_precision", "default"),
     ("simulation", "matmul_precision", "default"),
     ("io", "sink", "spool"),
     ("simulation", "profile_dir", "trace"),
     ("distributed", "coordinator_address", "localhost:1234"),
-    # the repulsive model's equal-time set is ported; its tau-resolved
-    # part still needs engine/uneqtime.py
-    ("simulation", "isMeasureUnequalTime", "true+repulsive"),
 ])
 def test_unported_configuration_raises(tmp_path, section, key, value):
     from dqmc_tpu_torch.run import run_simulation
     params = Parameters.from_string(_BASE)
-    if value.endswith("+repulsive"):
-        value = value.split("+")[0]
-        params.set("hubbard", "model", "repulsive")
-        params.set("simulation", "measure_spin", "true")
-    if value.endswith("+uneq"):
-        value = value.split("+")[0]
-        params.set("simulation", "isMeasureUnequalTime", "true")
     params.set(section, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_simulation(params, out_dir=str(tmp_path / "results"),

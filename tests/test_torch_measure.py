@@ -110,10 +110,14 @@ def test_increments_match_jax_manager(rng, signed):
     for key in want:
         np.testing.assert_allclose(to_np(got[key]), np.asarray(want[key]),
                                    atol=1e-12, err_msg=str(key))
-    zero = tm.zero_acc(torch.as_tensor(G),
-                       torch.as_tensor(signs) if signed else None)
-    assert set(zero) == set(got)
-    assert all(float(v.abs().max()) == 0.0 for v in zero.values())
+    acc = {}
+    for _ in range(2):
+        tm.accumulate(acc, got)
+    assert set(acc) == set(got)
+    for key in want:
+        np.testing.assert_allclose(to_np(acc[key]),
+                                   2.0 * np.asarray(want[key]), atol=1e-12,
+                                   err_msg=str(key))
 
 
 @pytest.mark.parametrize("L1,L2", [(4, 4), (6, 4)])
