@@ -94,16 +94,24 @@ non-zero):
     device time at the first three shapes, at (16, 32, 256) beside its
     twin, its bound and torch.linalg.qr in float64;
 15. the df32 headline (16x16, beta=8, nt=160, n_stab=5, W=16, dtype =
-    df32) through run_simulation (#3, K1, #7), G_df of the final fields
-    against the native float64 rebuild (< 1e-7), two blocks profiled;
-16. examples/tpu_production's tier split with unequal-time measurement
-    and the spin and charge sets (the fused float32 engine; every
-    measurement rebuilds the tau-resolved triplet at tf32 through #8 and
-    K1, its G00 the equal-time G; n_stab = auto; the checkpoint and spool
-    keys off): the tier of the final fields against the native float64 tau
-    sweep at n_stab = 1, every tau, and its G00 against the float64
-    rebuild (<= 1e-9 of max|G|); then a short measure_precision = df32 run
-    (#7), held likewise at 1e-7;
+    df32) through run_simulation (#3, K1, #7) with unequal-time
+    measurement on (phase 17 holds its tau sweep), G_df of the final
+    fields against the native float64 rebuild (< 1e-7), two blocks
+    profiled;
+16. examples/tpu_production as written, with the spin and charge sets
+    (the fused float32 engine; every measurement rebuilds the tau-resolved
+    triplet at tf32 through #8 and K1, its G00 the equal-time G; n_stab =
+    auto; checkpoint_every = 5 and the spool sink into an output
+    directory): the tier of the final fields against the native float64
+    tau sweep at n_stab = 1, every tau, and its G00 against the float64
+    rebuild (<= 1e-9 of max|G|), every walker's spool log holding its bin
+    once under the expected record names; then a short measure_precision
+    = df32 run (#7), held likewise at 1e-7; then, with engine-grade
+    measurement, 2 bins resumed to 4 against 4 straight (fields, G and
+    generator states bit for bit, the bins within 1e-4 of each array's
+    largest value: index_add_'s atomics) and a run stopped in
+    thermalization under n_stab = auto and resumed (bit for bit, the same
+    adapted n_stab);
 17. the engine-grade tau path (engine/uneqtime.py): (a) free fermions at
     the headline shape in float64 and float32 against the exact
     propagators (1e-10, 1e-2), with the boundary identities; (b) the
@@ -115,13 +123,26 @@ non-zero):
     examples/repulsive_spin through the CLI with its sweep counts cut
     (#2b + K1), at its n_stab = 10 (printed) and at 2 (signs +1,
     err_uneq_max < 1e-2), and on its fields (c) the
-    tau = 0 identities in float64 (<= 1e-12); then the df32 headline with
-    unequal-time measurement, 1 + 1 pairs, the tau sweep on the walkers'
-    float32 view against float64 (as in (b), <= 5e-2 of max|G|).
+    tau = 0 identities in float64 (<= 1e-12); then phase 15's df32
+    headline run (unequal-time measurement on, 1 + 1 pairs; run here if
+    phase 15 did not run), the tau sweep on the walkers' float32 view
+    against float64 (as in (b), <= 5e-2 of max|G|);
+18. checkerboard kinetics on the per-slice engine: bench.py's stretch_cb
+    (32x32, beta=16, nt=320, n_stab=5, W=4, float32) for one pair through
+    run_simulation (#3 + K1, finite), its rate beside phase 7's dense
+    stretch, one more pair under torch.profiler; the headline's float64
+    checkerboard B products on the card against the dense operator
+    (<= 1e-12); the headline shape with checkerboard in float64, one
+    pair, self-check < 1e-6.
 
-Every phase that drives a main path (4, 5, 7, 8, 11, 12, 13, 15, 16, 17)
-sets the launch counters to 0 just before and reads them just after; the
-tau runs also count the launches made inside their tau sweeps.  The line
+The phases run in the order 2-3, 5-10, 12-14, then phase 16 in a spawned
+process of its own (its launch counts come back to this one) while phases
+4, 11 and 15 run here, then 17 and 18: those four are host-bound, so
+their rates (and phase 15's profile) are taken beside one another; every
+kernel time of the kernels line is taken in phases 2-14, alone.  Every phase that drives a
+main path (4, 5, 7, 8, 11, 12, 13, 15-18) sets the launch counters to 0
+just before and reads them just after; the tau runs also count the
+launches made inside their tau sweeps.  The line
 before the last is one JSON object describing every kernel; the last line
 is the result object.  Tolerances are stated where they are checked.
 """
@@ -278,6 +299,22 @@ K1_STAGES = (("block_dot_kernel", "block passes: C = P Q^T, R"),
              ("Memcpy", "copy of A^T"))
 
 
+def device_rows(prof):
+    """Device time (us) and launches per name of the device's own records
+    (kernels and copies) of a finished torch.profiler run, largest first,
+    read from its raw records: key_averages() parses every record into a
+    FunctionEvent first, ~0.2 ms each on the card's host, which took ~100
+    s over this script's profiles."""
+    from torch.autograd import DeviceType
+    us, count = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us[e.name()] += e.duration_ns() / 1e3
+            count[e.name()] += 1
+    return [SimpleNamespace(key=k, us=v, count=count[k])
+            for k, v in us.most_common()]
+
+
 def k1_stage_split(torch, qk, A, reps=3):
     """Device time of K1's launches by stage over ``reps`` calls of
     cgs2_qr_inv, from torch.profiler."""
@@ -288,13 +325,11 @@ def k1_stage_split(torch, qk, A, reps=3):
         for _ in range(reps):
             qk.cgs2_qr_inv(A)
         torch.cuda.synchronize()
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
     times, counts = Counter(), Counter()
-    for e in prof.key_averages():
+    for e in device_rows(prof):
         for key, _ in K1_STAGES:
-            if key in e.key and dev(e) > 0:
-                times[key] += dev(e) / 1e3 / reps
+            if key in e.key:
+                times[key] += e.us / 1e3 / reps
                 counts[key] += e.count / reps
     busy = sum(times.values())
     B, n, _ = A.shape
@@ -394,7 +429,8 @@ def qr_quality(torch, qk, A):
 
 
 def block_inputs(torch, gen, W, L, beta, nt, n_slices, dtype,
-                 model="attractive", U=4.0, mu=-0.1, seed=11):
+                 model="attractive", U=4.0, mu=-0.1, seed=11,
+                 device="cuda"):
     """A fused block's inputs on an L x L lattice (L = (L1, L2): L1 x L2):
     the model, fresh walkers, and the block's streams."""
     from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
@@ -404,15 +440,15 @@ def block_inputs(torch, gen, W, L, beta, nt, n_slices, dtype,
     L1, L2 = L if isinstance(L, tuple) else (L, L)
     model = MODEL_REGISTRY[model].build(square_lattice(L1, L2), U=U, t=1.0,
                                         mu=mu, beta=beta, nt=nt, dtype=dtype,
-                                        device="cuda")
+                                        device=device)
     cfg = EngineConfig(nt=nt, n_stab=n_slices)
-    states = init_state(model, cfg, make_generators(seed, W, "cuda"))
+    states = init_state(model, cfg, make_generators(seed, W, device))
     ns = model.n_sites
     order = torch.argsort(torch.rand((n_slices, ns), generator=gen,
-                                     device="cuda"), dim=-1)
+                                     device=device), dim=-1)
     props = torch.randint(0, 3, (W, n_slices, ns), generator=gen,
-                          device="cuda")
-    us = torch.rand((W, n_slices, ns), generator=gen, device="cuda",
+                          device=device)
+    us = torch.rand((W, n_slices, ns), generator=gen, device=device,
                     dtype=dtype)
     return model, states, order, props, us
 
@@ -647,12 +683,13 @@ def phase_main(torch):
     from dqmc_tpu_torch.config import Parameters
     from dqmc_tpu_torch.run import main as cli_main, run_simulation
     params = Parameters(str(REPO / "examples" / "basic" / "parameters.in"))
-    # sweep counts cut to about a minute; n_stab cut from 10 to 2: the
-    # float32 naive-vs-stabilized error of this workload is heavy-tailed --
-    # its max over 600 pairs read 1.7e2 at n_stab=10 (the JAX package's own
-    # f32 engine reads 6.1 on the CPU), 1.4e-2 at 3 and 2.0e-3 at 2 (80
-    # pairs) on the card, against err_warn = 1e-2
-    cut = dict(n_therms=100, n_bins=8, n_sweeps=40, n_stab=2)
+    # sweep counts cut to 130 pairs (eight processes of this run take
+    # about a minute on the card's host; 420 pairs took ~170 s); n_stab cut
+    # from 10 to 2: the float32 naive-vs-stabilized error of this workload
+    # is heavy-tailed -- its max over 600 pairs read 1.7e2 at n_stab=10
+    # (the JAX package's own f32 engine reads 6.1 on the CPU), 1.4e-2 at 3
+    # and 2.0e-3 at 2 (80 pairs) on the card, against err_warn = 1e-2
+    cut = dict(n_therms=50, n_bins=4, n_sweeps=20, n_stab=2)
     for key, val in cut.items():
         params.set("simulation", key, val)
     has_h5py = importlib.util.find_spec("h5py") is not None
@@ -1130,11 +1167,12 @@ def time_site_kernels(torch, gen, tk, report, slice_err):
             + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
-def run_params(torch, text: str, label: str, need, phase: str):
-    """Drive run_simulation (the ``python -m dqmc_tpu_torch`` path, no
-    output files: the card machine has no h5py) on a parameter string;
-    reset the launch counters just before, read them just after, and check
-    that every kernel in ``need`` ran."""
+def run_params(torch, text: str, label: str, need, phase: str,
+               out_dir=None):
+    """Drive run_simulation (the ``python -m dqmc_tpu_torch`` path) on a
+    parameter string, writing into ``out_dir`` (None: no files); reset
+    the launch counters just before, read them just after, and check that
+    every kernel in ``need`` ran."""
     from dqmc_tpu_torch import _cuda
     from dqmc_tpu_torch.config import Parameters
     from dqmc_tpu_torch.run import run_simulation
@@ -1143,7 +1181,7 @@ def run_params(torch, text: str, label: str, need, phase: str):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    summary = run_simulation(params, out_dir=None, device="cuda",
+    summary = run_simulation(params, out_dir=out_dir, device="cuda",
                              verbose=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1171,6 +1209,9 @@ def run_params(torch, text: str, label: str, need, phase: str):
         fail(f"{label}: acceptance outside (0, 1)")
     return summary
 
+
+# phase 7's dense stretch rate with #3, printed beside phase 18's stretch_cb
+STRETCH_RATE = {}
 
 STRETCH = """
 [Lattice]
@@ -1201,9 +1242,11 @@ def phase_stretch(torch):
     scan pair profiled); K1 stabilizes all three."""
     site = ("delayed_slice",)
     sub = ("submatrix_group", "submatrix_flush")
-    run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 n_stab=5 W=4 "
-               "f32, engine = auto (per slice, site_update = pallas: #3), "
-               "0 + 1 pairs", ("cgs2_qr",) + site, "phase 7")
+    summary = run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 "
+                         "n_stab=5 W=4 f32, engine = auto (per slice, "
+                         "site_update = pallas: #3), 0 + 1 pairs",
+                         ("cgs2_qr",) + site, "phase 7")
+    STRETCH_RATE["#3"] = summary.sweeps_per_sec
     run_params(torch, STRETCH + "[simulation]\nsite_update = submatrix\n",
                "stretch, site_update = submatrix (#5), 0 + 1 pairs",
                ("cgs2_qr",) + sub, "phase 7")
@@ -1282,21 +1325,17 @@ def _profiled(torch, label, step, states, n_pairs, phase="phase 9",
             states = step(states)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
     # device-side rows only (kernels and copies), so nothing counts
     # twice through the CPU op that launched it
-    rows = sorted((e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")
-                   and dev(e) > 0), key=dev, reverse=True)
-    busy = sum(dev(e) for e in rows) / 1e6
+    rows = device_rows(prof)
+    busy = sum(e.us for e in rows) / 1e6
     say(f"{phase}: {label}, {n_pairs} profiled {unit}: wall "
         f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
         f"{1.0 - busy / wall:.4f}, {sum(e.count for e in rows)} device "
         f"operations")
     for e in rows[:8]:
-        say(f"{phase}:   {e.key[:60]:60s} {dev(e) / 1e3:10.1f} ms "
-            f"({dev(e) / 1e6 / busy:6.1%}) {e.count} calls")
+        say(f"{phase}:   {e.key[:60]:60s} {e.us / 1e3:10.1f} ms "
+            f"({e.us / 1e6 / busy:6.1%}) {e.count} calls")
     return busy, wall
 
 
@@ -2211,24 +2250,22 @@ def _f64_rebuild(torch, params, fields, symmetric=False):
 def phase_df32_headline(torch):
     """bench.py's df32 companion of the headline (16x16, beta=8, nt=160,
     n_stab=5, W=16, dtype = df32) through run_simulation: #3 site updates,
-    K1 in the refined solves, #7 in every fold; 1 + 1 pairs.  G_df of the
-    final fields against the native float64 rebuild; two blocks
-    profiled."""
+    K1 in the refined solves, #7 in every fold; 1 + 1 pairs, with the tau
+    measurement on (df32_headline_tau: phase 17 holds its tau sweep).
+    G_df of the final fields against the native float64 rebuild; two
+    blocks profiled."""
     from dqmc_tpu_torch.config import Parameters
     from dqmc_tpu_torch.ops import df32
-    summary = run_params(
-        torch, HEADLINE_DF32, "df32 headline 16x16 beta=8 nt=160 n_stab=5 "
-        "W=16, dtype = df32, 1 + 1 pairs",
-        ("df_qr_panel", "cgs2_qr", "delayed_slice"),
-        "phase 15")
+    summary = df32_headline_tau(torch, "phase 15")
     G64, _ = _f64_rebuild(torch, Parameters.from_string(HEADLINE_DF32),
                           summary.states.fields)
     gap = float((df32.to_f64(summary.states.G_df) - G64).abs().max())
     say(f"phase 15: df32 headline: walker-sweep-pairs/s "
         f"{summary.sweeps_per_sec:.4f}, acceptance {summary.acc_rate:.4f}, "
         f"steady self-check max {summary.max_precision_error:.3e} (the "
-        f"float32 drift between stabilizations), max |G_df - G_f64| of the "
-        f"final fields {gap:.3e} (< 1e-7)")
+        f"float32 drift between stabilizations, and the float32 tau "
+        f"sweep's err_uneq_max {summary.err_uneq_max:.3e} folded in), max "
+        f"|G_df - G_f64| of the final fields {gap:.3e} (< 1e-7)")
     if not gap < 1e-7:
         fail("df32 headline: G_df disagrees with the float64 rebuild")
     # where a df32 pair's time goes, per block (every kernel is warm from
@@ -2292,11 +2329,11 @@ class TauLaunches:
             self._saved
 
 
-def run_tau(torch, text, label, need, tau_need, phase):
+def run_tau(torch, text, label, need, tau_need, phase, out_dir=None):
     """run_params with the launches inside the tau sweeps counted: every
     kernel in ``tau_need`` must have launched there."""
     with TauLaunches() as tau:
-        summary = run_params(torch, text, label, need, phase)
+        summary = run_params(torch, text, label, need, phase, out_dir)
     say(f"{phase}: {label}: launches inside the tau sweeps "
         f"{dict(tau.counts)}, tau self-check max (err_uneq_max) "
         f"{summary.err_uneq_max:.3e}")
@@ -2421,16 +2458,13 @@ def hold_tau(torch, phase, label, states, model, cfg, params, warp=False,
 
 
 def _production_params(extra: str = "", walkers: int = 16):
-    """examples/tpu_production/parameters.in with unequal-time measurement
-    and the spin and charge sets on, the keys the port takes later
-    (checkpoints, the spool sink) off, the sweep counts cut and
-    ``walkers`` walkers."""
+    """examples/tpu_production/parameters.in as written (checkpoint_every,
+    the spool sink, n_stab = auto, the tf32 tier, the half-warp) with the
+    spin and charge sets on, the sweep counts cut and ``walkers``
+    walkers."""
     from dqmc_tpu_torch.config import Parameters
     params = Parameters(str(REPO / "examples" / "tpu_production" /
                             "parameters.in"))
-    params.set("simulation", "checkpoint_every", 0)
-    params.set("io", "sink", "h5")
-    params.set("walkers", "n_devices", 1)
     params.set("walkers", "n_walkers", walkers)
     for key, val in dict(n_therms=4, n_bins=1, n_sweeps=1,
                          isMeasureUnequalTime="true", measure_spin="true",
@@ -2549,6 +2583,9 @@ def tier_alone(torch, params, states, n_stab):
               cpu=False, unit="measurement")
 
 
+# the walkers of phase 16's resumes (each checkpoint holds their stack:
+# ~90 MB per walker at n_stab = 4)
+RESUME_WALKERS = 4
 # thermalization pairs of phase 16's df32-tier run
 DF32_TIER_THERMS = 40
 # phase 16's walkers, cut from the example's 16 for the float64 reference's
@@ -2557,44 +2594,231 @@ TIER_WALKERS = 8
 
 
 def phase_tier_split(torch, profile=False, walkers=TIER_WALKERS):
-    """examples/tpu_production's tier split with unequal-time measurement:
-    the fused float32 engine (K2 + K1) samples, every measurement rebuilds
-    the tau-resolved triplet at tf32 (#8 in every fold, K1 in every
-    refined solve), whose G00 is the equal-time G; n_stab = auto; 4 + 1x1
-    pairs.  The run's tier measurement against the native float64 tau
-    sweep at n_stab = 1 of the same fields (every tau, <= 1e-9 of
-    max|G|); with ``profile``, one tier measurement timed alone and under
-    torch.profiler.  Then a measure_precision = df32 run of the same
-    configuration (#7 through the tier) after DF32_TIER_THERMS pairs,
-    held likewise at 1e-7."""
-    params = _production_params(walkers=walkers)
+    """examples/tpu_production as written, its checkpoints and its spool
+    sink on: the fused float32 engine (K2 + K1) samples, every measurement
+    rebuilds the tau-resolved triplet at tf32 (#8 in every fold, K1 in
+    every refined solve), whose G00 is the equal-time G; n_stab = auto;
+    4 + 1x1 pairs into a fresh output directory.  The run's tier
+    measurement against the native float64 tau sweep at n_stab = 1 of the
+    same fields (every tau, <= 1e-9 of max|G|), every walker's spool log
+    holding its bin once under the expected record names, and the
+    checkpoint the run left; with ``profile``, one tier measurement timed
+    alone and under torch.profiler.  Then a measure_precision = df32 run
+    of the same configuration (#7 through the tier) after
+    DF32_TIER_THERMS pairs, held likewise at 1e-7; then the resumes
+    (production_resumes)."""
+    out = Path(tempfile.mkdtemp(prefix="phase16_"))
+    try:
+        params = _production_params(walkers=walkers)
+        W = params.get_int("walkers", "n_walkers")
+        with TierCheck(torch, params) as check:
+            summary = run_tau(
+                torch, params.dumps(), f"tpu_production 16x16 beta=8 "
+                f"nt=160 W={W}, float32 fused engine, measure_precision = "
+                f"tf32 with isMeasureUnequalTime, spin and charge sets, "
+                f"symmetric, n_stab = auto, checkpoint_every = 5, sink = "
+                f"spool, 4 + 1x1 pairs (the float64 reference inside)",
+                ("tf_qr_panel", "cgs2_qr", "fused_wrap", "fused_sites"),
+                ("tf_qr_panel", "cgs2_qr"), "phase 16", out / "flagship")
+        nt = params.get_int("simulation", "nt")
+        check.hold("phase 16", W, nt, 1e-9)
+        hold_logs(params, out / "flagship", W, 1)
+        from dqmc_tpu_torch.io.checkpoint import peek_meta
+        meta = peek_meta(out / "flagship" / "checkpoint.npz")
+        say(f"phase 16: the run's checkpoint: bin {meta['bin']}, "
+            f"thermalization done {meta['therm_done']}, n_stab "
+            f"{meta['n_stab']}, device {meta['device']}")
+        # checkpoint_every = 5 bins: the one bin leaves the checkpoint
+        # written at the end of thermalization (n_stab = auto may tighten
+        # after the bin)
+        if not (meta["therm_done"] and meta["bin"] == 0):
+            fail("tpu_production: the checkpoint does not hold the run's "
+                 "end of thermalization")
+        if profile:
+            tier_alone(torch, params, summary.states, summary.n_stab)
+        # the df32 tier's grade holds on equilibrated fields (the JAX
+        # package's note at its stride rule: from near-random fields its
+        # float32-seeded refinement can lose orders at any stride), so
+        # this chain is thermalized first
+        # (its checkpoints off: the flagship run above holds them, and
+        # every 5 of these pairs would save the walkers' ~0.7 GB stack)
+        params = _production_params(
+            f"[simulation]\nmeasure_precision = df32\nn_therms = "
+            f"{DF32_TIER_THERMS}\ncheckpoint_every = 0\n", walkers)
+        with TierCheck(torch, params) as check:
+            run_tau(torch, params.dumps(), f"tpu_production with "
+                    f"measure_precision = df32 and isMeasureUnequalTime, "
+                    f"{DF32_TIER_THERMS} + 1x1 pairs (the float64 reference "
+                    f"inside)", ("df_qr_panel", "cgs2_qr"),
+                    ("df_qr_panel", "cgs2_qr"), "phase 16", out / "df32")
+        check.hold("phase 16", W, nt, 1e-7)
+        production_resumes(torch, out, RESUME_WALKERS)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def expected_records(params):
+    """The spool record names a run of ``params`` writes per bin."""
+    from dqmc_tpu_torch.measure.manager import MeasurementManager
+    m = MeasurementManager(make_lattice_of(params), out_dir=None,
+                           measure_unequal=params.get_bool(
+                               "simulation", "isMeasureUnequalTime", False))
+    m.add_defaults()
+    if params.get_bool("simulation", "measure_spin", False):
+        m.add_spin()
+    if params.get_bool("simulation", "measure_charge", False):
+        m.add_charge()
+    return ({f"scalar/{n}" for n in m._scalar_fns}
+            | {f"{k}{g}/{n}" for k in ("", "K/")
+               for g, fns in (("equaltime", m._eq_fns),
+                              ("unequaltime", m._uneq_fns)) for n in fns})
+
+
+def hold_logs(params, out_dir, W, n_bins):
+    """Every walker's spool log (the port's read_spool) holds each of the
+    ``n_bins`` bins once, each under the expected record names."""
+    from dqmc_tpu_torch.io.spool import read_spool
+    want = expected_records(params)
+    for w in range(W):
+        seen = Counter((name, b) for name, b, _ in
+                       read_spool(out_dir / f"data_{w}.spool"))
+        per_bin = {b: {n for n, bb in seen if bb == b} for _, b in seen}
+        if not (set(seen.values()) == {1} and sorted(per_bin)
+                == list(range(n_bins))
+                and all(v == want for v in per_bin.values())):
+            fail(f"{out_dir.name}: walker {w}'s spool log does not hold "
+                 f"bins 0..{n_bins - 1} once each under {sorted(want)}: "
+                 f"{sorted(seen.items())[:8]}")
+    say(f"phase 16: {out_dir.name}: {W} spool logs, each holding bins "
+        f"0..{n_bins - 1} once with {len(want)} records per bin")
+
+
+# the resumed bins against the uninterrupted ones: the float32
+# measurement's displacement sums go through index_add_, whose CUDA
+# atomics add in any order, so two runs of the same fields part by up to
+# ns float32 roundings (~ns 2^-24 = 1.5e-5 at ns = 256) of an array's
+# largest value; a wrong or shifted bin differs at O(1)
+RESUME_BIN_REL = 1e-4
+
+
+class _Stop(Exception):
+    pass
+
+
+# the kernels of examples/tpu_production's engine-grade path
+NEED_RESUME = ("cgs2_qr", "fused_wrap", "fused_sites")
+
+
+def production_resumes(torch, out, walkers):
+    """examples/tpu_production stopped and resumed against uninterrupted
+    runs, with measure_precision = engine (the chain a checkpoint holds is
+    the same whatever measures it, and a tf32 tier measurement costs ~40 s
+    of host-bound launches): (1) 2 bins with checkpoint_every = 2, then a
+    resume to 4, against 4 straight: fields, G and the walkers' generator
+    states bit for bit, the bins within RESUME_BIN_REL of each array's
+    largest value; (2) 8 thermalization pairs under n_stab = auto (its
+    marks at pairs 2, 4 and 6), checkpointed every 5 as written, stopped
+    in the 7th pair and resumed, against the same run straight: fields, G,
+    generator states and the adapted n_stab bit for bit."""
+    from dqmc_tpu_torch import run as trun
+    from dqmc_tpu_torch.io.checkpoint import peek_meta
+    need = NEED_RESUME
+    base = ("[simulation]\nmeasure_precision = engine\n"
+            "checkpoint_every = 2\nn_therms = 2\n")
+    params = _production_params(base, walkers)
     W = params.get_int("walkers", "n_walkers")
-    with TierCheck(torch, params) as check:
-        summary = run_tau(
-            torch, params.dumps(), f"tpu_production 16x16 beta=8 nt=160 "
-            f"W={W}, float32 fused engine, measure_precision = tf32 with "
-            f"isMeasureUnequalTime, spin and charge sets, symmetric, n_stab "
-            f"= auto, 4 + 1x1 pairs (the float64 reference inside)",
-            ("tf_qr_panel", "cgs2_qr", "fused_wrap", "fused_sites"),
-            ("tf_qr_panel", "cgs2_qr"), "phase 16")
-    nt = params.get_int("simulation", "nt")
-    check.hold("phase 16", W, nt, 1e-9)
-    if profile:
-        tier_alone(torch, params, summary.states, summary.n_stab)
-    # the df32 tier's grade holds on equilibrated fields (the JAX package's
-    # note at its stride rule: from near-random fields its float32-seeded
-    # refinement can lose orders at any stride), so this chain is
-    # thermalized first
-    params = _production_params(
-        f"[simulation]\nmeasure_precision = df32\nn_therms = "
-        f"{DF32_TIER_THERMS}\n", walkers)
-    with TierCheck(torch, params) as check:
-        run_tau(torch, params.dumps(), f"tpu_production with "
-                f"measure_precision = df32 and isMeasureUnequalTime, "
-                f"{DF32_TIER_THERMS} + 1x1 pairs (the float64 reference "
-                f"inside)", ("df_qr_panel", "cgs2_qr"),
-                ("df_qr_panel", "cgs2_qr"), "phase 16")
-    check.hold("phase 16", W, nt, 1e-7)
+
+    def with_bins(n):
+        return params.dumps() + f"[simulation]\nn_bins = {n}\n"
+    straight = run_params(torch, with_bins(4), "tpu_production, engine "
+                          "measurement, checkpoint_every = 2, 2 + 4x1 "
+                          "pairs straight", need, "phase 16",
+                          out / "straight")
+    run_params(torch, with_bins(2), "the same, 2 + 2x1 pairs", need,
+               "phase 16", out / "resumed")
+    resumed = run_params(torch, with_bins(4), "the same resumed from its "
+                         "checkpoint at bin 2 to 4 bins", need, "phase 16",
+                         out / "resumed")
+    hold_logs(params, out / "straight", W, 4)
+    hold_chain(torch, "2 bins, resumed to 4, against 4 straight",
+               straight.states, resumed.states)
+    hold_bins(out / "straight", out / "resumed", W, 4)
+
+    text = _production_params(
+        "[simulation]\nmeasure_precision = engine\nn_therms = 8\n",
+        walkers).dumps()
+    straight = run_params(torch, text, "tpu_production, engine measurement, "
+                          "n_stab = auto, 8 + 1x1 pairs straight", need,
+                          "phase 16", out / "auto_straight")
+    real, calls = trun.sweep_pair_fused, []
+
+    def stop_in_7th(*args, **kw):
+        calls.append(1)
+        if len(calls) == 7:
+            raise _Stop
+        return real(*args, **kw)
+    trun.sweep_pair_fused = stop_in_7th
+    try:
+        run_params(torch, text, "the same, stopped in its 7th pair", (),
+                   "phase 16", out / "auto_resumed")
+        fail("the stopped run was not stopped")
+    except _Stop:
+        pass
+    finally:
+        trun.sweep_pair_fused = real
+    meta = peek_meta(out / "auto_resumed" / "checkpoint.npz")
+    if (meta["therm_done"], meta["therm_sweep"]) != (False, 5):
+        fail(f"the stopped run's checkpoint is not at thermalization pair "
+             f"5: {meta}")
+    resumed = run_params(torch, text, f"the same resumed from thermalization "
+                         f"pair 5 at n_stab {meta['n_stab']}", need,
+                         "phase 16", out / "auto_resumed")
+    hold_chain(torch, "stopped at thermalization pair 7 (checkpoint at 5) "
+               "and resumed, against straight", straight.states,
+               resumed.states)
+    say(f"phase 16: n_stab auto: straight {straight.n_stab}, resumed "
+        f"{resumed.n_stab}")
+    if straight.n_stab != resumed.n_stab:
+        fail("the resumed run adapted n_stab elsewhere")
+
+
+def hold_chain(torch, label, a, b):
+    """Fields, G and every walker's generator state bit for bit."""
+    same = dict(
+        fields=torch.equal(a.fields, b.fields), G=torch.equal(a.G, b.G),
+        generators=all(torch.equal(x.get_state(), y.get_state())
+                       for x, y in zip(a.gens, b.gens)))
+    say(f"phase 16: {label}: bit for bit {same}")
+    if not all(same.values()):
+        fail(f"{label}: the resumed chain differs")
+
+
+def hold_bins(dir_a, dir_b, W, n_bins):
+    """The bins of two runs' spool logs (the last record of a bin wins),
+    every array within RESUME_BIN_REL of its largest value."""
+    import numpy as np
+    from dqmc_tpu_torch.io.spool import read_bins
+    worst, exact, total = 0.0, 0, 0
+    for w in range(W):
+        A = read_bins(dir_a / f"data_{w}.spool")
+        B = read_bins(dir_b / f"data_{w}.spool")
+        if sorted(A) != sorted(B) or sorted(A) != list(range(n_bins)):
+            fail(f"walker {w}: bins {sorted(A)} against {sorted(B)}")
+        for b in A:
+            for group, vals in A[b].items():
+                if set(vals) != set(B[b][group]):
+                    fail(f"walker {w} bin {b}: {group} names differ")
+                for name, x in vals.items():
+                    x, y = np.asarray(x), np.asarray(B[b][group][name])
+                    scale = max(float(np.abs(x).max()), 1e-300)
+                    worst = max(worst, float(np.abs(x - y).max()) / scale)
+                    exact += bool(np.array_equal(x, y))
+                    total += 1
+    say(f"phase 16: resumed bins against straight: {exact} of {total} "
+        f"arrays bit for bit, the largest gap {worst:.3e} of its array's "
+        f"largest value (<= {RESUME_BIN_REL:.0e}: index_add_'s atomics)")
+    if worst > RESUME_BIN_REL:
+        fail("the resumed bins differ from the uninterrupted ones")
 
 
 HEADLINE_UNEQ = """
@@ -2856,6 +3080,30 @@ def make_lattice_of(params):
                         params.get_int("Lattice", "L2"))
 
 
+HEADLINE_DF32_TAU = HEADLINE_DF32 + (
+    "[simulation]\nisMeasureUnequalTime = true\nmeasure_spin = true\n"
+    "measure_charge = true\n")
+# the one run of HEADLINE_DF32_TAU, shared by phases 15 and 17 (a df32
+# headline pair takes ~70 s of host-bound launches)
+_DF32_TAU_RUN = {}
+
+
+def df32_headline_tau(torch, phase):
+    """The df32 headline with isMeasureUnequalTime and the spin and charge
+    sets through run_simulation, 1 + 1 pairs (run_tau: #7, K1 and #3 in
+    the engine, K1 inside the tau sweep), run once for phases 15 and 17."""
+    if "summary" not in _DF32_TAU_RUN:
+        _DF32_TAU_RUN["summary"] = run_tau(
+            torch, HEADLINE_DF32_TAU, "df32 headline 16x16 beta=8 nt=160 "
+            "n_stab=5 W=16, dtype = df32, with isMeasureUnequalTime, spin "
+            "and charge sets, 1 + 1 pairs",
+            ("df_qr_panel", "cgs2_qr", "delayed_slice"), ("cgs2_qr",), phase)
+    else:
+        say(f"{phase}: the df32 headline with isMeasureUnequalTime: phase "
+            f"15's run")
+    return _DF32_TAU_RUN["summary"]
+
+
 def tau_df32(torch):
     """(d) the df32 headline with isMeasureUnequalTime, 1 + 1 pairs: #3,
     K1 and #7 in the engine, the float32 tau sweep on the walkers' float32
@@ -2865,12 +3113,8 @@ def tau_df32(torch):
     from dqmc_tpu_torch.config import Parameters
     from dqmc_tpu_torch.engine.state import EngineConfig
     from dqmc_tpu_torch.models import AttractiveHubbard
-    text = HEADLINE_DF32 + ("[simulation]\nisMeasureUnequalTime = true\n"
-                            "measure_spin = true\nmeasure_charge = true\n")
-    summary = run_tau(torch, text, "df32 headline with isMeasureUnequalTime, "
-                      "1 + 1 pairs", ("df_qr_panel", "cgs2_qr",
-                                      "delayed_slice"), ("cgs2_qr",),
-                      "phase 17")
+    text = HEADLINE_DF32_TAU
+    summary = df32_headline_tau(torch, "phase 17")
     say(f"phase 17: (d) df32 headline: err_uneq_max "
         f"{summary.err_uneq_max:.3e} (absolute; gated below over max|G|)")
     params = Parameters.from_string(text)
@@ -2888,6 +3132,113 @@ def phase_tau(torch):
     tau_headline(torch)
     tau_repulsive_spin(torch)
     tau_df32(torch)
+
+
+HEADLINE_CB64 = """
+[Lattice]
+L1 = 16
+L2 = 16
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+checkerboard = true
+[simulation]
+beta = 8.0
+nt = 160
+n_stab = 5
+n_therms = 0
+n_bins = 1
+n_sweeps = 1
+dtype = float64
+seed = 42
+[walkers]
+n_walkers = 16
+"""
+
+
+def checkerboard_matrix(lat, t, mu, dtau):
+    """The dense matrix of the checkerboard operator, e^{dtau mu} G_3 G_2
+    G_1 G_0 with each group's exponential taken by scipy's expm of its
+    bond matrix (group 0 acts first, as models/kinetic.py applies them)."""
+    import numpy as np
+    import scipy.linalg
+    from dqmc_tpu_torch.models.kinetic import build_checkerboard
+    perms, masks, _, _ = build_checkerboard(lat, t, dtau)
+    ns = lat.n_sites
+    P = np.exp(dtau * mu) * np.eye(ns)
+    for g in range(4):
+        Kg = np.zeros((ns, ns))
+        for i in range(ns):
+            j = perms[g][i]
+            if masks[g][i] and j > i:
+                Kg[i, j] = Kg[j, i] = -t
+        P = scipy.linalg.expm(-dtau * Kg) @ P
+    return P
+
+
+def checkerboard_products(torch, device="cuda"):
+    """The four B products of the headline's float64 checkerboard model on
+    the card (W = 16, random fields, X of unit-order entries) against B
+    and B^{-1} formed from the dense matrix of the operator: <= 1e-12."""
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.models import kinetic
+    lat = square_lattice(16, 16)
+    model = AttractiveHubbard.build(lat, U=4.0, t=1.0, mu=0.0, beta=8.0,
+                                    nt=160, dtype=torch.float64,
+                                    device=device, checkerboard=True)
+    P = torch.as_tensor(checkerboard_matrix(lat, 1.0, 0.0, 8.0 / 160),
+                        device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    X = torch.randn((16, 1, 256, 256), generator=gen, dtype=torch.float64,
+                    device=device) / 16.0
+    f = torch.randint(0, 4, (16, 256), generator=gen, device=device)
+    ev = model.expV_diag(f)
+    B = ev[..., :, None] * P
+    Bi = torch.linalg.inv(P) / ev[..., None, :]
+    want = dict(apply_B_left=B @ X, apply_B_right=X @ B,
+                apply_invB_left=Bi @ X, apply_invB_right=X @ Bi)
+    gaps = {name: float((getattr(kinetic, name)(model, f, X) - w).abs().max())
+            for name, w in want.items()}
+    say(f"phase 18: headline checkerboard float64 B products on the card "
+        f"against the operator's dense matrix (max|B X| "
+        f"{float(want['apply_B_left'].abs().max()):.3f}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + " (<= 1e-12)")
+    if max(gaps.values()) > 1e-12:
+        fail("a checkerboard B product disagrees with the dense operator")
+
+
+def phase_checkerboard(torch):
+    """Phase 18: checkerboard kinetics (models/kinetic.py, the group
+    application in plain torch) on the per-slice engine.  bench.py's
+    stretch_cb (32x32, beta=16, nt=320, n_stab=5, W=4, float32) for one
+    pair through run_simulation (#3 + K1; finite, as phase 7's dense
+    stretch, whose rate is printed beside), then one pair under
+    torch.profiler; the headline's float64 checkerboard B products
+    against the dense operator; the headline shape (16x16, beta=8,
+    nt=160, W=16) with checkerboard in float64 on the per-slice engine
+    (#3), one pair, its self-check < 1e-6."""
+    text = STRETCH + "[hubbard]\ncheckerboard = true\n"
+    summary = run_params(torch, text, "stretch_cb 32x32 beta=16 nt=320 "
+                         "n_stab=5 W=4 f32, checkerboard, engine = auto "
+                         "(per slice, site_update = pallas: #3), 0 + 1 "
+                         "pairs", ("cgs2_qr", "delayed_slice"), "phase 18")
+    say(f"phase 18: stretch_cb {summary.sweeps_per_sec:.4f} "
+        f"walker-sweep-pairs/s; the dense stretch with #3 (phase 7) "
+        + (f"{STRETCH_RATE['#3']:.4f}" if "#3" in STRETCH_RATE
+           else "not run"))
+    profile_params(torch, text, "stretch_cb, checkerboard (#3)", 0, 1,
+                   "phase 18", cpu=False)
+    checkerboard_products(torch)
+    summary = run_params(torch, HEADLINE_CB64, "headline 16x16 beta=8 "
+                         "nt=160 n_stab=5 W=16 float64, checkerboard, per "
+                         "slice (#3), 0 + 1 pairs", ("delayed_slice",),
+                         "phase 18")
+    if not summary.max_precision_error < 1e-6:
+        fail("checkerboard headline float64: self-check not below 1e-6")
 
 
 def print_registers() -> None:
@@ -2943,7 +3294,61 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "tf_qr_panel": ("dqmc_tpu_torch/csrc/mw_qr_panel.cu",
                     "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+# the phases that run, in this order after phase 14, while phase 16 runs
+# in a process of its own: phase 16 is host-bound (~220 s of launches), as
+# are these, and none of them profiles the card but phase 15's two blocks
+# of elementwise glue (phase 17's tau sweep read 2x its device time beside
+# it: two processes' kernels share the card by time slices); every kernel
+# time of the kernels line is taken before it starts
+BESIDE_16 = (4, 11, 15)
+
+
+def exact_matmuls(torch) -> None:
+    """No TF32 in torch's float32 products (the twins and the engines'
+    torch glue)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _side_phase(phase: int, conn) -> None:
+    """Entry point of SidePhase's process: run ``phase`` and send back
+    its launch counts (a failed check exits non-zero first)."""
+    import torch
+    sys.path.insert(0, str(REPO))
+    exact_matmuls(torch)
+    t0 = time.perf_counter()
+    {16: phase_tier_split}[phase](torch)
+    say(f"phase {phase}: done in {time.perf_counter() - t0:.1f} s in its "
+        f"own process")
+    conn.send(dict(TOTALS))
+
+
+class SidePhase:
+    """A phase run in a spawned process of its own (a daemon: it ends
+    with this script) beside the phases in BESIDE_16; ``join`` waits for
+    it, fails if it failed and adds its launch counts to TOTALS."""
+
+    def __init__(self, phase: int):
+        ctx = mp.get_context("spawn")
+        self.phase, self.t0 = phase, time.perf_counter()
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_side_phase, args=(phase, child),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+        say(f"phase {phase}: started in a process of its own, beside "
+            f"phases {', '.join(map(str, BESIDE_16))}")
+
+    def join(self) -> None:
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            fail(f"phase {self.phase} (its own process) exited with "
+                 f"{self.proc.exitcode}")
+        TOTALS.update(self.conn.recv())
+        say(f"phase {self.phase} took {time.perf_counter() - self.t0:.1f} "
+            f"s (in its own process)")
 
 
 def main(argv=None) -> None:
@@ -2980,9 +3385,7 @@ def main(argv=None) -> None:
         f"{lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     gen14 = torch.Generator(device="cuda")
@@ -2990,25 +3393,36 @@ def main(argv=None) -> None:
     report = {}
     steps = ((2, lambda: phase_qr(torch, gen, report)),
              (3, lambda: phase_block(torch, gen, report)),
-             (4, lambda: phase_main(torch)),
              (5, lambda: phase_headline(torch, card)),
              (6, lambda: phase_sites(torch, gen, report)),
              (7, lambda: phase_stretch(torch)),
              (8, lambda: phase_basic_slice(torch)),
              (9, lambda: phase_profile(torch)),
              (10, lambda: phase_new_kernels(torch, report)),
-             (11, lambda: phase_repulsive(torch)),
              (12, lambda: phase_repulsive_headline(torch, card)),
              (13, lambda: phase_fused_submatrix(torch, card)),
              (14, lambda: phase_mw_panels(torch, gen14, report)),
+             (16, None),
+             (4, lambda: phase_main(torch)),
+             (11, lambda: phase_repulsive(torch)),
              (15, lambda: phase_df32_headline(torch)),
-             (16, lambda: phase_tier_split(torch)),
-             (17, lambda: phase_tau(torch)))
+             (17, lambda: phase_tau(torch)),
+             (18, lambda: phase_checkerboard(torch)))
+    side = None
     for phase, run in steps:
-        if phase in phases:
-            t1 = time.perf_counter()
-            run()
-            say(f"phase {phase} took {time.perf_counter() - t1:.1f} s")
+        if phase not in phases:
+            continue
+        if side is not None and phase not in BESIDE_16:
+            side.join()
+            side = None
+        if run is None:
+            side = SidePhase(phase)
+            continue
+        t1 = time.perf_counter()
+        run()
+        say(f"phase {phase} took {time.perf_counter() - t1:.1f} s")
+    if side is not None:
+        side.join()
     if not set(PHASES) <= phases:
         say(f"partial run (phases {sorted(phases)}): no result object")
         return

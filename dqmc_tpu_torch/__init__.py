@@ -12,7 +12,7 @@ writes are read by ``python -m dqmc_tpu.analysis``.
 - :mod:`dqmc_tpu_torch.lattice`  — lattice geometry and the ``info`` file
 - :mod:`dqmc_tpu_torch.hsfield`  — the 4-state GHQ field
 - :mod:`dqmc_tpu_torch.models`   — the attractive and repulsive Hubbard
-  models, dense kinetics
+  models, dense or checkerboard kinetics
 - :mod:`dqmc_tpu_torch.ops`      — LDR algebra, the CGS2 QR kernel, the
   site-update kernels (delayed, submatrix, rank-1), and the multiword
   (df32, tf32) arithmetic, LDR algebra and panel-QR kernels
@@ -20,7 +20,8 @@ writes are read by ``python -m dqmc_tpu.analysis``.
   and the per-slice sweeps, the df32 engine and the multiword measurement
   tier
 - :mod:`dqmc_tpu_torch.measure`  — equal-time observables and HDF5 bins
-- :mod:`dqmc_tpu_torch.io`       — the HDF5 bin writer
+- :mod:`dqmc_tpu_torch.io`       — the HDF5 bin writer, the spool log
+  and checkpoint/resume
 - :mod:`dqmc_tpu_torch.run`      — the ``python -m dqmc_tpu_torch`` driver
 """
 

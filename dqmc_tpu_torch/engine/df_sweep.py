@@ -40,6 +40,17 @@ from dqmc_tpu_torch.ops.df_linalg import (LDRdf, inv_one_plus_ldr_dag,
 # df model data
 # ----------------------------------------------------------------------
 
+# the df32 engine's block products and stack come from the dense expK
+# (df_aux_build), so with a checkerboard model32 they would not be the
+# products of the B its float32 wraps apply: the JAX package runs that
+# mixture (ROADMAP.md section 3, "Faults of the reference")
+CHECKERBOARD_DF32 = (
+    "the df32 engine builds its df32 block products and stack from the "
+    "dense expK, not from the checkerboard operator its float32 wraps "
+    "apply (ROADMAP.md section 3, 'Faults of the reference'); run "
+    "checkerboard = true with dtype float32 or float64")
+
+
 class DFModelAux(NamedTuple):
     """df32 twins of the propagator constants: expK (ns, ns) of
     expm(-dtau K) from the float64 build, expv (nfl, 4) the table
@@ -229,6 +240,8 @@ def df_sweep(model32, aux: DFModelAux, cfg: EngineConfig,
     a ragged last block runs last forward and first backward).
     ``streams = (orders, props, us)``, each (W, nt, ns), replaces the draw
     from the walker generators."""
+    if model32.checkerboard:
+        raise NotImplementedError(CHECKERBOARD_DF32)
     W = states.G.shape[0]
     nfl, ns, dev = model32.n_flavor, model32.n_sites, model32.device
     if update:

@@ -71,6 +71,15 @@ def _slice_invB(model, invexpK, fields_l: torch.Tensor, nm,
     return nm.mul(invexpK, nm.cmap(lambda c: c[..., None, :], ev))
 
 
+# the tiers rebuild G from the dense expK, so a checkerboard chain would
+# be measured on the dense model's G, as the JAX package does
+CHECKERBOARD_TIER = (
+    "the multiword measurement tiers rebuild G from the dense expK, which "
+    "is not the checkerboard chain's B (ROADMAP.md section 3, 'Faults of "
+    "the reference'); run checkerboard = true with measure_precision = "
+    "engine")
+
+
 def _check_model(model):
     if model.n_flavor not in (1, 2):
         raise NotImplementedError(
@@ -79,6 +88,8 @@ def _check_model(model):
         raise ValueError("parity rebuild needs the float64-built model "
                          "(expK at full precision); build it with "
                          "dtype=torch.float64")
+    if model.checkerboard:
+        raise NotImplementedError(CHECKERBOARD_TIER)
 
 
 def _identity_ldr(batch: tuple, ns: int, nm, device):

@@ -1,1 +1,2 @@
-"""Binned HDF5 output (the JAX package's layout)."""
+"""Binned HDF5 output (the JAX package's layout), the spool log of bins
+and walker checkpoints."""

@@ -76,6 +76,10 @@ class BinFileWriter:
                 group.create_dataset(name, data=np.ascontiguousarray(interleaved))
         self._f.flush()
 
+    def bins(self) -> list:
+        """The bin indices the file holds."""
+        return sorted(int(k[4:]) for k in self._f if k.startswith("bin_"))
+
     def close(self) -> None:
         self._f.close()
 

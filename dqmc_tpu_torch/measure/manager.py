@@ -11,9 +11,23 @@ block).  The run loop adds increments into an accumulator dict
 (:meth:`accumulate`); :meth:`ingest_bin` normalizes a
 bin, transforms it to momentum space on the host and writes one HDF5 bin
 per walker through ``io/h5out.py``'s ``BinFileWriter`` (the reference's
-byte layout): walker w writes ``<out_dir>/data_<w>.h5``.  With
-``out_dir = None`` nothing is written; the per-bin scalar means are kept
-in ``bin_scalars`` either way.
+byte layout): walker w writes ``<out_dir>/data_<rank_offset + w>.h5``.
+With ``out_dir = None`` nothing is written; the per-bin scalar means are
+kept in ``bin_scalars`` either way.
+
+``sink = "spool"`` appends each walker's bins to ``data_<rank_offset +
+w>.spool`` (``io/spool.py``, needs only numpy) instead, under the JAX
+package's record names (``scalar/``, ``equaltime/``, ``unequaltime/``,
+``K/equaltime/``, ``K/unequaltime/``); :meth:`close` converts every log to
+its ``.h5`` where h5py can be imported and keeps the logs, which stay the
+run's record for a resume.  Where h5py is missing it
+prints where the logs are and how to convert them.  A resumed run
+(``start_bin > 0``) continues the bin numbering and appends: to the logs,
+or to the h5 files as the JAX package does (a file that already holds a
+bin at or past the checkpoint's raises, as the JAX package's create_group
+does, but with a diagnosis); a resume with the other sink than the
+files holding the run's bins raises.  A log that cannot be opened or
+written raises: nothing falls back to h5.
 
 For a model with a sign problem (det_power = 1) the increments take the
 walkers' signs: every observable accumulates sign-weighted (<O s>) and a
@@ -47,18 +61,46 @@ ERR_UNEQ = ("meta", "err_uneq_max")
 class MeasurementManager:
     def __init__(self, lat: Lattice, *, n_walkers: int = 1,
                  out_dir: str | None = "results", device="cpu",
-                 measure_unequal: bool = False):
+                 measure_unequal: bool = False, sink: str = "h5",
+                 start_bin: int = 0, rank_offset: int = 0):
+        if sink not in ("h5", "spool"):
+            raise ValueError(f"[io] sink {sink!r}: h5 or spool")
         self.lat = lat
         self.ctx = make_context(lat, device)
         self.n_walkers = n_walkers
         self.out_dir = out_dir
         self.measure_unequal = measure_unequal
-        self.current_bin = 0
+        self.rank_offset = rank_offset
+        self.current_bin = start_bin       # a resume continues the numbering
+        self._append = start_bin > 0
         self.bin_scalars: list = []        # per bin: name -> walker mean
         self._scalar_fns: Dict[str, Callable] = {}
         self._eq_fns: Dict[str, Callable] = {}
         self._uneq_fns: Dict[str, Callable] = {}
         self._writers = None
+        self._spools = None
+        if out_dir is None:
+            return
+        if self._append:
+            # a resume continues the run's bins in the files that hold them
+            own, other = ((".spool", ".h5") if sink == "spool"
+                          else (".h5", ".spool"))
+            for w in range(n_walkers):
+                if (os.path.exists(self._path(w, other))
+                        and not os.path.exists(self._path(w, own))):
+                    raise ValueError(
+                        f"this run resumes at bin {start_bin} with [io] "
+                        f"sink = {sink}, but its earlier bins are in "
+                        f"{self._path(w, other)}: resume with the sink the "
+                        f"run started with")
+        if sink == "spool":
+            from dqmc_tpu_torch.io.spool import Spool
+            self._spools = {w: Spool(self._path(w, ".spool"),
+                                     append=self._append)
+                            for w in range(n_walkers)}
+        elif self._append:
+            for w in range(n_walkers):     # a bin taken twice raises now
+                self._writer(w)
 
     def add_scalar(self, name: str, fn: Callable) -> None:
         self._scalar_fns[name] = fn
@@ -187,15 +229,29 @@ class MeasurementManager:
         self.current_bin += 1
         if self.out_dir is None:
             return err_u
+        b = self.current_bin - 1
         for w in range(self.n_walkers):
-            self._writer(w).write_bin(
-                self.current_bin - 1,
-                {n: float(v[w]) for n, v in scalars.items()},
-                {n: v[w] for n, v in eq_r.items()},
-                {n: r_to_k(v[w], self.ctx) for n, v in eq_r.items()},
-                {n: v[w] for n, v in uneq_r.items()},
-                {n: r_to_k(v[w], self.ctx) for n, v in uneq_r.items()})
+            sc = {n: float(v[w]) for n, v in scalars.items()}
+            er = {n: v[w] for n, v in eq_r.items()}
+            ur = {n: v[w] for n, v in uneq_r.items()}
+            ek = {n: r_to_k(v, self.ctx) for n, v in er.items()}
+            uk = {n: r_to_k(v, self.ctx) for n, v in ur.items()}
+            if self._spools is None:
+                self._writer(w).write_bin(b, sc, er, ek, ur, uk)
+                continue
+            sp = self._spools[w]
+            for n, v in sc.items():
+                sp.write(f"scalar/{n}", b, np.asarray([v]))
+            for prefix, r, k in (("equaltime/", er, ek),
+                                 ("unequaltime/", ur, uk)):
+                for n in r:
+                    sp.write(prefix + n, b, r[n])
+                    sp.write("K/" + prefix + n, b, k[n])
         return err_u
+
+    def _path(self, w: int, ext: str) -> str:
+        return os.path.join(self.out_dir,
+                            f"data_{self.rank_offset + w}{ext}")
 
     def _writer(self, w: int):
         # h5py is imported only when a bin is written
@@ -203,11 +259,43 @@ class MeasurementManager:
         if self._writers is None:
             self._writers = {}
         if w not in self._writers:
-            path = os.path.join(self.out_dir, f"data_{w}.h5")
-            self._writers[w] = BinFileWriter(path, mode="w")
+            path = self._path(w, ".h5")
+            writer = BinFileWriter(path, mode="a" if self._append else "w")
+            late = [b for b in writer.bins() if b >= self.current_bin]
+            if late:
+                writer.close()
+                raise ValueError(
+                    f"{path} already holds bins {late}, written after the "
+                    f"checkpoint at bin {self.current_bin} that this run "
+                    f"resumes from: an h5 file cannot take a bin again (as "
+                    f"in the JAX package); remove those bins from it, or "
+                    f"run with [io] sink = spool, whose log does")
+            self._writers[w] = writer
         return self._writers[w]
 
+    def flush(self) -> None:
+        """Put every bin written so far on disk (before a checkpoint)."""
+        for sp in (self._spools or {}).values():
+            sp.flush()
+
     def close(self) -> None:
+        """Close the files; convert the spool logs to h5 where h5py can be
+        imported, else say where they are and how to convert them."""
         for w in (self._writers or {}).values():
             w.close()
         self._writers = None
+        if self._spools is None:
+            return
+        for sp in self._spools.values():
+            sp.close()
+        self._spools = None
+        import importlib.util
+        if importlib.util.find_spec("h5py") is None:
+            print(f"h5py is not installed: the bins stay in "
+                  f"{os.path.join(self.out_dir, 'data_*.spool')}; convert "
+                  f"them where h5py is installed with `python -m "
+                  f"dqmc_tpu_torch.io.spool {self.out_dir}`")
+            return
+        from dqmc_tpu_torch.io.spool import convert_spool_to_h5
+        for w in range(self.n_walkers):
+            convert_spool_to_h5(self._path(w, ".spool"), self._path(w, ".h5"))

@@ -1,4 +1,4 @@
-"""Attractive Hubbard model on a periodic lattice, dense kinetics.
+"""Attractive Hubbard model on a periodic lattice.
 
 PyTorch counterpart of ``dqmc_tpu/models/attractive_hubbard.py``:
 
@@ -11,6 +11,13 @@ g = sqrt(dtau |U| / 2).  The model is spin-symmetric: one stored flavor
 (``n_flavor = 1``) whose determinant ratio enters squared
 (``det_power = 2``).  The matrix exponentials are taken once in host f64
 with scipy, exactly as in the JAX package, then moved to the device.
+
+``checkerboard = True`` adds the checkerboard tables of
+``models/kinetic.py`` (``cb_perm``, ``cb_mask``, ``cb_ch``, ``cb_sh``,
+``cb_emu``), through which the engine then applies every kinetic factor
+(square lattice, t' = 0, even L1 and L2, one orbital, as in the JAX
+package).  The dense exponentials are still built: the half-warp of
+``symmetric = true`` uses ``expK_half`` as the JAX package does.
 """
 
 from __future__ import annotations
@@ -63,7 +70,13 @@ class AttractiveHubbard:
     eta: torch.Tensor        # (4,) GHQ node values
     gamma: torch.Tensor      # (4,) GHQ weights
     beta: torch.Tensor       # () inverse temperature
+    # checkerboard kinetics (models/kinetic.py); None in dense mode
     checkerboard: bool = False
+    cb_perm: torch.Tensor | None = None   # (4, ns) bond-partner permutations
+    cb_mask: torch.Tensor | None = None   # (4, ns) group membership
+    cb_ch: float = 0.0
+    cb_sh: float = 0.0
+    cb_emu: float = 1.0
 
     # what build() gives this model; RepulsiveHubbard overrides them
     N_FLAVOR = 1
@@ -75,15 +88,23 @@ class AttractiveHubbard:
               beta: float, nt: int, dtype=torch.float64,
               device="cpu", checkerboard: bool = False,
               bonds=None):
-        if checkerboard:
-            raise NotImplementedError(
-                "checkerboard kinetics are not ported to dqmc_tpu_torch yet "
-                "(ROADMAP: modules to port, slice 3 'other models and "
-                "geometries')")
         dtau = beta / nt
         K = build_kinetic_matrix(lat, t, mu, bonds=bonds)
         as_t = lambda x: torch.as_tensor(np.asarray(x, np.float64),
                                          dtype=dtype, device=device)
+        cb = {}
+        if checkerboard:
+            if bonds is not None and sorted(bonds) != sorted(
+                    [((1, 0), 0, 0), ((0, 1), 0, 0)]):
+                raise ValueError("checkerboard kinetics supports the square "
+                                 "lattice only; use dense expK for other "
+                                 "geometries")
+            from dqmc_tpu_torch.models.kinetic import build_checkerboard
+            perms, masks, ch, sh = build_checkerboard(lat, t, dtau)
+            cb = dict(checkerboard=True,
+                      cb_perm=torch.as_tensor(perms, device=device),
+                      cb_mask=as_t(masks), cb_ch=ch, cb_sh=sh,
+                      cb_emu=float(np.exp(dtau * mu)))
         return cls(
             n_sites=lat.n_sites, nt=int(nt), n_flavor=cls.N_FLAVOR,
             det_power=cls.DET_POWER,
@@ -96,6 +117,7 @@ class AttractiveHubbard:
             eta=as_t(hsfield.ETA),
             gamma=as_t(hsfield.GAMMA),
             beta=as_t(beta),
+            **cb,
         )
 
     @classmethod

@@ -1,4 +1,4 @@
-"""Repulsive Hubbard model (2-flavor DQMC), dense kinetics.
+"""Repulsive Hubbard model (2-flavor DQMC).
 
 PyTorch counterpart of ``dqmc_tpu/models/repulsive_hubbard.py``:
 
@@ -14,9 +14,13 @@ per-field bosonic factor (``alpha = 0``).  Two stored flavors
 engine tracks the Metropolis sign (``WalkerState.sign``) and the measurement
 layer records <sign> for reweighting.
 
-Everything the two models share (the kinetic exponentials, ``from_params``,
-``det_ratio``, ``global_action`` -- whose bosonic term vanishes with alpha)
-is inherited from :class:`AttractiveHubbard`.
+Everything the two models share (the kinetic exponentials and the
+checkerboard tables, ``from_params``, ``det_ratio``, ``global_action`` --
+whose bosonic term vanishes with alpha) is inherited from
+:class:`AttractiveHubbard`.  So ``[hubbard] checkerboard = true`` runs the
+repulsive model on the checkerboard operator; the JAX package's repulsive
+model ignores that key and runs dense (ROADMAP.md section 3, "Faults of
+the reference").
 """
 
 from __future__ import annotations

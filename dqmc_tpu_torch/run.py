@@ -4,9 +4,10 @@ PyTorch counterpart of ``dqmc_tpu/run.py`` for the slice the port serves so
 far: the attractive (``[hubbard] model = attractive``, one stored flavor)
 and the repulsive (``model = repulsive``, two flavors with a tracked
 Metropolis sign) Hubbard model with dense kinetics on any of the package's
-lattices, walker-batched on one device through the fused block engine (the
-wrap/site-loop kernels) or the per-slice engine (the delayed, submatrix and
-rank-1 site-update kernels), with the CGS2 QR kernel for float32
+lattices or checkerboard kinetics on the square lattice, walker-batched on
+one device through the fused block engine (the wrap/site-loop kernels) or
+the per-slice engine (the delayed, submatrix and rank-1 site-update
+kernels), with the CGS2 QR kernel for float32
 stabilization on CUDA and plain twins on the CPU; float32 or float64,
 equal-time measurement of density, doubleOcc, swave and densityCorr, plus
 spinZZCorr and spinXXCorr with ``measure_spin = true``, sign-weighted with
@@ -29,6 +30,21 @@ whatever the sampling engine; ``measure_n_stab`` sets the rebuild's stride.
 With unequal-time measurement on, the tier rebuilds the whole tau-resolved
 triplet instead (``measurement_uneq_fn``, stride ``measure_uneq_n_stab``),
 and its G00 is the equal-time measurement's G.
+
+``[hubbard] checkerboard = true`` applies every kinetic factor through
+the checkerboard groups (``models/kinetic.py``); the fused engine does not
+take it, so ``engine = auto`` runs it on the per-slice engine.  The df32
+engine and the multiword tiers build their products from the dense expK
+and refuse it (ROADMAP.md section 3, "Faults of the reference").
+
+``[simulation] checkpoint_every = N`` saves the chain (``io/checkpoint.py``)
+every N bins and every N * n_sweeps thermalization pairs to
+``checkpoint_path`` (default ``<out_dir>/checkpoint.npz``); a run that
+finds that file resumes from it where it stopped, mid-thermalization
+included, at the n_stab it had adapted to, continuing the bin numbering.
+``[io] sink = spool`` writes the bins to ``data_<w>.spool`` logs
+(``io/spool.py``, numpy only) and converts them to ``data_<w>.h5`` at the
+end where h5py is installed.
 
 ``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
 when it supports the model (ns <= 512, dense kinetics, rank-k buffers that
@@ -56,7 +72,8 @@ import time
 import torch
 
 from dqmc_tpu_torch.config import Parameters
-from dqmc_tpu_torch.engine.df_sweep import (df_aux_build, df_sweep_pair,
+from dqmc_tpu_torch.engine.df_sweep import (CHECKERBOARD_DF32,
+                                            df_aux_build, df_sweep_pair,
                                             f32_view, init_state_df,
                                             rebuild_stack_df)
 from dqmc_tpu_torch.engine.fused import supports_fused, sweep_pair_fused
@@ -64,9 +81,12 @@ from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
 from dqmc_tpu_torch.engine.sweep import (half_warp, init_state,
                                          rebuild_stack_and_greens,
                                          reset_error_stats, sweep_pair)
-from dqmc_tpu_torch.engine.parity import (measurement_greens_fn,
+from dqmc_tpu_torch.engine.parity import (CHECKERBOARD_TIER,
+                                          measurement_greens_fn,
                                           measurement_uneq_fn)
 from dqmc_tpu_torch.engine.uneqtime import sweep_unequal_time
+from dqmc_tpu_torch.io.checkpoint import (load_checkpoint, peek_meta,
+                                          save_checkpoint)
 from dqmc_tpu_torch.lattice import bonds_with_tp, make_lattice
 from dqmc_tpu_torch.measure.manager import MeasurementManager
 from dqmc_tpu_torch.models import MODEL_REGISTRY
@@ -84,18 +104,12 @@ def _unported(params: Parameters):
              "slice 3, devices"),
             (bool(get_s("distributed", "coordinator_address", "")),
              "multi-host runs", "slice 3, devices"),
-            (get_i("simulation", "checkpoint_every", 0) > 0,
-             "checkpointing", "slice 2, io/checkpoint.py"),
-            (get_b("hubbard", "checkerboard", False),
-             "checkerboard kinetics", "slice 3, other models"),
             (get_s("simulation", "wrap_precision", "highest") != "highest",
              "wrap_precision other than highest",
              "not to port (TPU MXU-pass knob)"),
             (get_s("simulation", "matmul_precision", "highest")
              != "highest", "matmul_precision other than highest",
              "not to port (TPU MXU-pass knob)"),
-            (get_s("io", "sink", "h5") != "h5", "io sink other than h5",
-             "slice 2, io"),
             (bool(get_s("simulation", "profile_dir", "")), "profile_dir",
              "slice 1, the bench.py port"),
         ] if on]
@@ -259,6 +273,22 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     model_cls = MODEL_REGISTRY[model_name]
     model = model_cls.from_params(params, lat, dtype=dtype, device=device)
     signed = model.det_power == 1
+    if model.checkerboard and df_mode:
+        raise NotImplementedError(CHECKERBOARD_DF32)
+    if model.checkerboard and measure_prec != "engine":
+        raise NotImplementedError(CHECKERBOARD_TIER)
+    # checkpoint / resume: the stack's slot count depends on n_stab, so an
+    # adapted n_stab must be known before the states are built
+    ckpt_every = params.get_int("simulation", "checkpoint_every", 0)
+    ckpt_path = params.get_str("simulation", "checkpoint_path", "")
+    if ckpt_every > 0 and not ckpt_path:
+        if out_dir is None:
+            raise ValueError("checkpoint_every > 0 without an output "
+                             "directory needs [simulation] checkpoint_path")
+        ckpt_path = os.path.join(out_dir, "checkpoint.npz")
+    resume = ckpt_every > 0 and os.path.exists(ckpt_path)
+    if resume and n_stab_auto:
+        n_stab = int(peek_meta(ckpt_path).get("n_stab", n_stab))
     cfg = make_engine_config(params, device, n_stab)
     fused = not df_mode and use_fused_engine(params, model, device, dtype,
                                              cfg)
@@ -296,10 +326,21 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     gens = make_generators(seed, n_walkers, device)
     states = (init_state_df(model, aux, cfg, gens) if df_mode
               else init_state(model, cfg, gens))
+    start_bin = start_therm = 0
+    therm_done = False
+    if resume:
+        states, meta = load_checkpoint(ckpt_path, states)
+        start_bin = int(meta["bin"])
+        therm_done = bool(meta["therm_done"])
+        start_therm = int(meta["therm_sweep"])
+        log(f"Resumed from {ckpt_path} at bin {start_bin}"
+            + ("" if therm_done
+               else f" (thermalization sweep pair {start_therm})"))
     manager = MeasurementManager(
         lat, n_walkers=n_walkers, out_dir=out_dir, device=device,
         measure_unequal=params.get_bool("simulation",
-                                        "isMeasureUnequalTime", False))
+                                        "isMeasureUnequalTime", False),
+        sink=params.get_str("io", "sink", "h5"), start_bin=start_bin)
     manager.add_defaults()
     if params.get_bool("simulation", "measure_spin", False):
         manager.add_spin()
@@ -370,8 +411,20 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
         s = _stats(states)
         return s["err_sum"] / s["err_count"] if s["err_count"] else 0.0
 
+    def checkpoint(therm_flag: bool, therm_sweep: int = 0):
+        """Save the chain after a thermalization pair or a bin; the bins
+        written so far go to disk first."""
+        manager.flush()
+        _sync(device)
+        save_checkpoint(ckpt_path, states, {
+            "bin": manager.current_bin, "therm_done": therm_flag,
+            "therm_sweep": therm_sweep, "n_stab": cfg.n_stab, "seed": seed,
+            "n_walkers": n_walkers})
+
     # n_stab = auto: tune during thermalization to the loosest value whose
-    # steady chunk error stays below the warn threshold (/16 hysteresis)
+    # steady chunk error stays below the warn threshold (/16 hysteresis).
+    # The marks are those of the whole phase, so a run resumed in
+    # thermalization adapts where an uninterrupted one does.
     adapt_marks = ()
     if n_stab_auto and n_therms >= 4:
         k = min(8, n_therms // 2)
@@ -393,27 +446,38 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
             f"(warn {err_warn:.0e}) -> n_stab = {new}")
         return reseat(states, cfg), cfg
 
+    # thermalization, checkpointed every checkpoint_every * n_sweeps pairs
+    # so that a long one resumes where it stopped; the statistics are
+    # reset before the checkpoint that ends it, so a run resumed in the
+    # measurement phase carries the measured phase's statistics only
     t0 = time.perf_counter()
-    for it in range(n_therms):
-        states = step(model, cfg, states)
-        if (it + 1) in adapt_marks:
-            states, cfg = adapt(states, cfg)
+    therm_err_max = 0.0
+    if not therm_done:
+        ckpt_stride = ckpt_every * max(n_sweeps, 1)
+        for it in range(start_therm, n_therms):
+            states = step(model, cfg, states)
+            if (it + 1) in adapt_marks:
+                states, cfg = adapt(states, cfg)
+            if (ckpt_every > 0 and (it + 1) % ckpt_stride == 0
+                    and it + 1 < n_therms):
+                checkpoint(False, therm_sweep=it + 1)
+        therm_err_max = _stats(states)["err_max"]
+        states = reset_error_stats(states)
+        if ckpt_every > 0:
+            checkpoint(True)
     _sync(device)
     dt_therm = time.perf_counter() - t0
     log(f"Thermalization done in {dt_therm:.2f} seconds"
         + (f" (auto n_stab = {cfg.n_stab})" if n_stab_auto else ""))
-
-    therm_err_max = _stats(states)["err_max"]
-    if n_therms:
+    if n_therms and not therm_done:
         log(f"Thermalization transient precision error = "
             f"{therm_err_max:.4e}")
-    states = reset_error_stats(states)
 
     t0 = time.perf_counter()
     greens_fn, uneq_step = measured_fns(cfg)
     warp = (lambda G: half_warp(model, G)) if symmetric else None
     err_uneq_max = 0.0
-    for ibin in range(n_bins):
+    for ibin in range(start_bin, n_bins):
         acc = {}
         for _ in range(n_sweeps):
             states = step(model, cfg, states)
@@ -435,8 +499,11 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
                       file=sys.stderr)
                 warned = True
         # n_stab = auto in the measurement phase: tighten only, on the
-        # sweeps' chunk error or the unequal-time sweep's self-check
-        if n_stab_auto and cfg.n_stab > 1 and ibin + 1 < n_bins:
+        # sweeps' chunk error or the unequal-time sweep's self-check.
+        # After every bin, the last included, so that the state a
+        # checkpoint carries does not depend on n_bins: a run extended by
+        # a resume then equals one run straight to its end.
+        if n_stab_auto and cfg.n_stab > 1:
             err_mean = chunk_err_mean(states)
             if max(err_mean, bin_err_uneq) > err_warn:
                 cfg = dataclasses.replace(cfg, n_stab=cfg.n_stab - 1)
@@ -446,15 +513,19 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
                 states = reset_error_stats(reseat(states, cfg))
                 greens_fn, uneq_step = measured_fns(cfg)
                 warned = False
+        if ckpt_every > 0 and manager.current_bin % ckpt_every == 0:
+            checkpoint(True)
     _sync(device)
     dt_meas = time.perf_counter() - t0
     manager.close()
 
     # summary (main.cpp:180-208); a sweep here is the reference's
-    # forward+backward pair, so acceptance divides by 2 sweeps per pair
-    total = n_bins * n_sweeps
+    # forward+backward pair, so acceptance divides by 2 sweeps per pair,
+    # over the whole chain (acc_sum is part of a checkpoint's state)
+    total = (n_bins - start_bin) * n_sweeps
     stats = _stats(states)
-    acc_rate = stats["acc_sum_mean"] / (2.0 * max(n_therms + total, 1))
+    acc_rate = stats["acc_sum_mean"] / (2.0 * max(n_therms
+                                                  + n_bins * n_sweeps, 1))
     err_max = max(stats["err_max"], err_uneq_max)
     err_mean = stats["err_sum"] / max(stats["err_count"], 1)
     rate = total * n_walkers / dt_meas if dt_meas > 0 else float("inf")

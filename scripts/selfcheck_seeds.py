@@ -3,7 +3,7 @@
 seeds, on the card.
 
 Phase 4 runs examples/basic through ``run_simulation`` in float32 with the
-sweep counts cut (n_therms=100, n_bins=8, n_sweeps=40, n_stab=2) and gates
+sweep counts cut (n_therms=50, n_bins=4, n_sweeps=20, n_stab=2) and gates
 the steady self-check max (the largest naive-vs-stabilized error of the
 measurement phase) at 1e-2.  That max is one tail event of one chain, so
 one seed says little about a change of summation order.  This script runs
@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-CUT = dict(n_therms=100, n_bins=8, n_sweeps=40, n_stab=2)
+CUT = dict(n_therms=50, n_bins=4, n_sweeps=20, n_stab=2)
 
 
 def run_seed(seed: int) -> tuple:

@@ -28,7 +28,6 @@ from dqmc_tpu.models import AttractiveHubbard, RepulsiveHubbard
 from dqmc_tpu_torch.engine import fused as tfused
 from dqmc_tpu_torch.engine.state import EngineConfig as TEngineConfig
 from dqmc_tpu_torch.engine.sweep import local_update_core
-from dqmc_tpu_torch.models import AttractiveHubbard as TAttractiveHubbard
 from torch_port_util import (  # noqa: F401
     release_jax_programs,
     to_np,
@@ -207,9 +206,13 @@ def test_wrap_gemm_plain_semantics(rng):
 def test_supports_fused():
     model, cfg, _ = _setup()
     assert tfused.supports_fused(torch_model(model), cfg)
-    big = TAttractiveHubbard.build(square_lattice(24, 24), U=4.0, t=1.0,
-                                   mu=0.0, beta=1.0, nt=4)
-    assert not tfused.supports_fused(big)          # ns = 576 > 512
+    # ns = 576 > 512: a 24 x 24 model's shape alone (building its four
+    # 576 x 576 exponentials took ~30 s of the suite's time)
+    from types import SimpleNamespace
+    big = SimpleNamespace(n_sites=24 * 24, n_flavor=1, det_power=2,
+                          checkerboard=False, device=torch.device("cpu"),
+                          expK=torch.zeros(1, dtype=torch.float64))
+    assert not tfused.supports_fused(big)
 
 
 def test_supports_fused_two_flavors_and_submatrix():

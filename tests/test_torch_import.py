@@ -62,11 +62,8 @@ n_stab = 4
 @pytest.mark.parametrize("section,key,value", [
     ("ParallelTempering", "enabled", "true"),
     ("walkers", "n_devices", "2"),
-    ("simulation", "checkpoint_every", "1"),
-    ("hubbard", "checkerboard", "true"),
     ("simulation", "wrap_precision", "default"),
     ("simulation", "matmul_precision", "default"),
-    ("io", "sink", "spool"),
     ("simulation", "profile_dir", "trace"),
     ("distributed", "coordinator_address", "localhost:1234"),
 ])

@@ -130,6 +130,18 @@ def test_kinetic_products_match_jax(rng, name, L):
 
 
 def test_checkerboard_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAttractiveHubbard.build(square_lattice(4, 4), U=4.0, t=1.0, mu=0.0,
-                                 beta=2.0, nt=8, checkerboard=True)
+    """Checkerboard kinetics are refused where the JAX package's build
+    refuses them, with a ValueError in both packages: odd L, another
+    geometry, t' != 0 (tests/test_torch_checkerboard.py holds what
+    runs)."""
+    from dqmc_tpu_torch.lattice import square_lattice as tsquare_lattice
+    for (L1, L2), geometry, tp, match in (
+            ((6, 3), "square", 0.0, "even L1, L2"),
+            ((4, 4), "triangular", 0.0, "square lattice only"),
+            ((4, 4), "square", 0.2, "square lattice only")):
+        for cls, lat in ((AttractiveHubbard, square_lattice(L1, L2)),
+                         (TAttractiveHubbard, tsquare_lattice(L1, L2))):
+            with pytest.raises(ValueError, match=match):
+                cls.build(lat, U=4.0, t=1.0, mu=0.0, beta=2.0, nt=8,
+                          checkerboard=True,
+                          bonds=bonds_with_tp(geometry, tp))
