@@ -133,14 +133,36 @@ non-zero):
     stretch, one more pair under torch.profiler; the headline's float64
     checkerboard B products on the card against the dense operator
     (<= 1e-12); the headline shape with checkerboard in float64, one
-    pair, self-check < 1e-6.
+    pair, self-check < 1e-6;
+19. parallel tempering (parallel/tempering.py, the per-slice engine on a
+    replica-stacked model): (a) #3 with the doped PT ladder's six
+    per-walker (g, alpha) and #4 with the repulsive ladder's, one slice at
+    (W=6, ns=144, k=32) against the twin (float64 decisions identical, G
+    within 1e-9 of max|G|; float32 <= 1% mismatched; the same bits on a
+    second call); (c) bench.py's doped PT scale (12x12, nt=120, n_stab=5,
+    betas 6.0-5.0, float32 with f64 actions, seed 11, sink = spool) for 20
+    + 4x10 pairs through run_simulation (#3 + K1): its rate, exchange rate
+    (0 < rate <= 1), steady self-check and launches per pair, six spool
+    logs holding every bin, one more pair under torch.profiler, then the
+    same ladder with model = repulsive (#4) for 2 + 10 pairs; (b) f64-action
+    exchange attempts from (c)'s final replicas against an all-float64
+    replica set (the same decisions and fields), and six equal betas (every
+    pair accepts, fields and signs swap exactly); (d) examples/tempering at
+    its width, stopped in thermalization and in the measurement and
+    resumed, against straight (fields, G, generators, the exchange
+    generator, attempt and accepted bit for bit; bins within 1e-4); (e)
+    one df32 exchange at bench.py's headline PT scale (16x16, nt=160,
+    betas 8.0-6.0; #7) against the f64 actions' decisions; (f) a tf32-tier
+    PT segment at 8x8, nt=20 (#8), each replica's tier G within 1e-9 of
+    max|G| of its float64 rebuild.
 
 The phases run in the order 2-3, 5-10, 12-14, then phase 16 in a spawned
 process of its own (its launch counts come back to this one) while phases
-4, 11 and 15 run here, then 17 and 18: those four are host-bound, so
-their rates (and phase 15's profile) are taken beside one another; every
+4, 11 and 15 run here (those four are host-bound, so their rates and
+phase 15's profile are taken beside one another), then 17, 18 and 19,
+alone; every
 kernel time of the kernels line is taken in phases 2-14, alone.  Every phase that drives a
-main path (4, 5, 7, 8, 11, 12, 13, 15-18) sets the launch counters to 0
+main path (4, 5, 7, 8, 11, 12, 13, 15-19) sets the launch counters to 0
 just before and reads them just after; the tau runs also count the
 launches made inside their tau sweeps.  The line
 before the last is one JSON object describing every kernel; the last line
@@ -2674,7 +2696,7 @@ def expected_records(params):
                               ("unequaltime", m._uneq_fns)) for n in fns})
 
 
-def hold_logs(params, out_dir, W, n_bins):
+def hold_logs(params, out_dir, W, n_bins, phase="phase 16"):
     """Every walker's spool log (the port's read_spool) holds each of the
     ``n_bins`` bins once, each under the expected record names."""
     from dqmc_tpu_torch.io.spool import read_spool
@@ -2689,7 +2711,7 @@ def hold_logs(params, out_dir, W, n_bins):
             fail(f"{out_dir.name}: walker {w}'s spool log does not hold "
                  f"bins 0..{n_bins - 1} once each under {sorted(want)}: "
                  f"{sorted(seen.items())[:8]}")
-    say(f"phase 16: {out_dir.name}: {W} spool logs, each holding bins "
+    say(f"{phase}: {out_dir.name}: {W} spool logs, each holding bins "
         f"0..{n_bins - 1} once with {len(want)} records per bin")
 
 
@@ -2782,18 +2804,19 @@ def production_resumes(torch, out, walkers):
         fail("the resumed run adapted n_stab elsewhere")
 
 
-def hold_chain(torch, label, a, b):
-    """Fields, G and every walker's generator state bit for bit."""
+def hold_chain(torch, label, a, b, phase="phase 16", **extra):
+    """Fields, G and every walker's generator state bit for bit (and the
+    ``extra`` equalities given)."""
     same = dict(
         fields=torch.equal(a.fields, b.fields), G=torch.equal(a.G, b.G),
         generators=all(torch.equal(x.get_state(), y.get_state())
-                       for x, y in zip(a.gens, b.gens)))
-    say(f"phase 16: {label}: bit for bit {same}")
+                       for x, y in zip(a.gens, b.gens)), **extra)
+    say(f"{phase}: {label}: bit for bit {same}")
     if not all(same.values()):
         fail(f"{label}: the resumed chain differs")
 
 
-def hold_bins(dir_a, dir_b, W, n_bins):
+def hold_bins(dir_a, dir_b, W, n_bins, phase="phase 16"):
     """The bins of two runs' spool logs (the last record of a bin wins),
     every array within RESUME_BIN_REL of its largest value."""
     import numpy as np
@@ -2814,7 +2837,7 @@ def hold_bins(dir_a, dir_b, W, n_bins):
                     worst = max(worst, float(np.abs(x - y).max()) / scale)
                     exact += bool(np.array_equal(x, y))
                     total += 1
-    say(f"phase 16: resumed bins against straight: {exact} of {total} "
+    say(f"{phase}: resumed bins against straight: {exact} of {total} "
         f"arrays bit for bit, the largest gap {worst:.3e} of its array's "
         f"largest value (<= {RESUME_BIN_REL:.0e}: index_add_'s atomics)")
     if worst > RESUME_BIN_REL:
@@ -3241,6 +3264,410 @@ def phase_checkerboard(torch):
         fail("checkerboard headline float64: self-check not below 1e-6")
 
 
+# ----------------------------------------------------------------------
+# phase 19: parallel tempering
+# ----------------------------------------------------------------------
+
+# bench.py's doped PT scale (bench.py:396-440) as written, its depth cut
+PT_BETAS = (6.0, 5.8, 5.6, 5.4, 5.2, 5.0)
+PT_DOPED = f"""
+[Lattice]
+L1 = 12
+L2 = 12
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 6.0
+nt = 120
+n_therms = 20
+n_sweeps = 10
+n_bins = 4
+n_stab = 5
+seed = 11
+dtype = float32
+[io]
+sink = spool
+[ParallelTempering]
+enabled = true
+sweep_steps = 10
+betas = {', '.join(map(str, PT_BETAS))}
+"""
+# bench.py's headline PT scale: the df32 exchange (#7 at ns = 256)
+PT_HEADLINE = (16, 160, (8.0, 7.6, 7.2, 6.8, 6.4, 6.0))
+# the kernels of the float32 PT path: K1 and #3 (#4 for the repulsive
+# ladder)
+NEED_PT = ("cgs2_qr", "delayed_slice")
+
+
+def ladder(torch, model_cls, dtype, L, nt, betas, mu=0.0):
+    """A replica-stacked model on the card, one beta per replica."""
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.parallel.walkers import stack_models
+    return stack_models([model_cls.build(
+        square_lattice(L, L), U=4.0, t=1.0, mu=mu, beta=b, nt=nt,
+        dtype=dtype, device="cuda") for b in betas])
+
+
+def f64_walkers(torch, models64, cfg, fields):
+    """float64 walker states of ``fields`` under a float64 ladder."""
+    from dqmc_tpu_torch.engine.state import WalkerState
+    from dqmc_tpu_torch.engine.sweep import rebuild_stack_and_greens
+    stack, G, ld = rebuild_stack_and_greens(models64, cfg, fields)
+    z = torch.zeros(fields.shape[0], dtype=torch.float64, device="cuda")
+    return WalkerState(fields=fields.clone(), G=G, stack=stack,
+                       log_det_M=ld, gens=[], acc_sum=z, sign=z + 1.0,
+                       err_max=z, err_sum=z, err_count=z)
+
+
+def pt_sites(torch, gen):
+    """(a) #3 with the ladder's six per-walker (g, alpha), then #4 with the
+    repulsive ladder's, one slice at (W=6, ns=144, k=32) from the ladder's
+    fresh walkers, against the twin: float64 decisions (and signs)
+    identical and G within 1e-9 of max|G|, float32 <= 1% mismatched
+    decisions, the same bits on a second call."""
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.engine.sweep import _couplings, init_state
+    from dqmc_tpu_torch.models import AttractiveHubbard, RepulsiveHubbard
+    from dqmc_tpu_torch.ops import kernels as tk
+    for cls, fn, tag in (
+            (AttractiveHubbard, tk.metropolis_slice_update_batched, "#3"),
+            (RepulsiveHubbard, tk.metropolis_slice_update_batched_2f, "#4")):
+        for dtype in (torch.float64, torch.float32):
+            models = ladder(torch, cls, dtype, 12, 120, PT_BETAS)
+            states = init_state(models, EngineConfig(nt=120, n_stab=5),
+                                make_generators(11, 6, "cuda"))
+            W, ns = 6, models.n_sites
+            g, alpha = _couplings(models, W)
+            args = (g, alpha, torch.argsort(torch.rand(
+                ns, generator=gen, device="cuda")),
+                torch.randint(0, 3, (W, ns), generator=gen, device="cuda"),
+                torch.rand((W, ns), generator=gen, device="cuda",
+                           dtype=dtype), states.G, states.fields[:, 0])
+            a, b, p = fn(*args), fn(*args), fn(*args, plain=True)
+            torch.cuda.synchronize()
+            mism = int((a[1] != p[1]).sum())
+            smis = int((a[3] != p[3]).sum()) if len(a) > 3 else 0
+            rel = float((a[0] - p[0]).abs().max() / p[0].abs().max())
+            acc = int((p[2] * ns).round().sum())
+            say(f"phase 19: {tag} {str(dtype)[6:]} (W={W}, ns={ns}, k=32), "
+                f"the doped ladder's g {[round(float(x), 6) for x in g]}: "
+                f"{acc} of {W * ns} accepted, mismatched decisions {mism}, "
+                f"signs {smis}, |dG|/max|G| {rel:.3e}, same bits on a "
+                f"second call {same_bits(a, b)}")
+            if not same_bits(a, b):
+                fail(f"phase 19: {tag} differs between two calls")
+            if not 0 < acc < W * ns:
+                fail(f"phase 19: {tag}: no accept or no reject")
+            if dtype == torch.float64 and (mism or smis or not rel < 1e-9):
+                fail(f"phase 19: {tag} disagrees with its twin (f64)")
+            if mism > 0.01 * W * ns:
+                fail(f"phase 19: {tag} f32 decisions disagree with the twin")
+
+
+def run_pt(torch, text, label, need, out_dir=None, phase="phase 19"):
+    """Drive a parallel-tempering run through run_simulation, counting its
+    launches as run_params does; returns (summary, params, steady replica
+    sweep pairs/s from the run's log, launches)."""
+    import contextlib
+    import io
+    import re
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.run import run_simulation
+    params = Parameters.from_string(text)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = run_simulation(params, out_dir=out_dir, device="cuda",
+                                 verbose=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    TOTALS.update(_cuda.LAUNCHES)
+    m = re.search(r"\(([-\d.na]+) steady", buf.getvalue())
+    steady = float(m.group(1)) if m else float("nan")
+    obs = summary.observables
+    say(f"{phase}: {label} in {dt:.1f} s: {summary.sweeps_per_sec:.4f} "
+        f"replica-sweep-pairs/s over the measured pairs, {steady:.4f} "
+        f"steady (the pairs before the first exchange attempt left out), "
+        f"exchange rate {summary.exchange_rate:.4f}, acceptance "
+        f"{summary.acc_rate:.4f}, steady self-check max "
+        f"{summary.max_precision_error:.3e} mean "
+        f"{summary.mean_precision_error:.3e}, replica 0: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in obs.items())
+        + f", launches {launches}")
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        fail(f"{label}: kernels of the path not launched: {missing}")
+    nums = list(obs.values()) + [summary.max_precision_error,
+                                 summary.sweeps_per_sec]
+    if not all(v == v and abs(v) < float("inf") for v in nums):
+        fail(f"{label}: a number is not finite: {obs}")
+    if not 0.0 < summary.acc_rate < 1.0:
+        fail(f"{label}: acceptance outside (0, 1)")
+    return summary, params, steady, launches
+
+
+def pt_doped(torch):
+    """(c) the doped PT run (spool sink) with its rate, exchange rate,
+    steady self-check and launches per pair; one more sweep pair of its
+    final replicas under torch.profiler; then a short repulsive run of
+    the same ladder (#4)."""
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.engine.sweep import sweep_pair
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    out = Path(tempfile.mkdtemp(prefix="phase19_"))
+    try:
+        summary, params, _, launches = run_pt(
+            torch, PT_DOPED, "the doped PT scale (12x12, nt=120, n_stab=5, "
+            "6 betas 6.0-5.0, float32, f64 actions, sink = spool), 20 + "
+            "4x10 pairs, 4 exchange attempts", NEED_PT, out / "doped")
+        if not 0.0 < summary.exchange_rate <= 1.0:
+            fail(f"phase 19: exchange rate {summary.exchange_rate} outside "
+                 f"(0, 1]")
+        hold_logs(params, out / "doped", 6, 4, phase="phase 19")
+        pairs = 20 + 40
+        say("phase 19: doped PT launches per replica-batch sweep pair: "
+            + ", ".join(f"{k} {v / pairs:.1f}" for k, v in launches.items()))
+        models = ladder(torch, AttractiveHubbard, torch.float32, 12, 120,
+                        PT_BETAS)
+        cfg = EngineConfig(nt=120, n_stab=5, use_pallas=True)
+        _profiled(torch, "the doped PT ladder (6 replicas)",
+                  lambda s: sweep_pair(models, cfg, s), summary.states, 1,
+                  phase="phase 19", cpu=False)
+        text = PT_DOPED + ("[hubbard]\nmodel = repulsive\n[simulation]\n"
+                           "n_therms = 2\nn_bins = 1\n")
+        rep, _, _, rl = run_pt(torch, text, "the same ladder, model = "
+                               "repulsive, 2 + 1x10 pairs, 1 attempt",
+                               ("cgs2_qr", "delayed_slice_2f"),
+                               out / "repulsive")
+        say("phase 19: repulsive PT launches per sweep pair: "
+            + ", ".join(f"{k} {v / 12:.1f}" for k, v in rl.items()))
+        return summary
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def pt_exchange(torch, states32):
+    """(b) f64-action exchange attempts on the card from the doped run's
+    final replicas, against an all-float64 replica set of the same fields
+    with the same uniforms: the same decisions and fields; then six equal
+    betas, where every pair must accept, the fields swap exactly and the
+    signs travel."""
+    import dataclasses
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.parallel import tempering as tt
+    cfg = EngineConfig(nt=120, n_stab=5, use_pallas=True)
+    m32 = ladder(torch, AttractiveHubbard, torch.float32, 12, 120, PT_BETAS)
+    m64 = ladder(torch, AttractiveHubbard, torch.float64, 12, 120, PT_BETAS)
+    s32, s64 = states32, f64_walkers(torch, m64, cfg, states32.fields)
+    gen = tt.exchange_generator(19, 6)
+    for attempt in (5, 6, 7, 8):
+        u = tt.exchange_uniforms(gen, 6)
+        t0 = time.perf_counter()
+        s32, a32 = tt.replica_exchange(m32, cfg, s32, attempt, u,
+                                       f64_actions=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        S = tt.exchange_actions(m64, cfg, s64, tt.partner_indices(6, attempt))
+        s64, a64 = tt.replica_exchange(m64, cfg, s64, attempt, u)
+        same = torch.equal(a32, a64) and torch.equal(s32.fields, s64.fields)
+        say(f"phase 19: f64-action attempt {attempt} in {dt * 1e3:.1f} ms: "
+            f"decisions {a32.int().tolist()}, all-float64 "
+            f"{a64.int().tolist()}, S_cross - S_self "
+            f"{[round(float(x), 3) for x in S[1] - S[0]]}, same {same}")
+        if not same:
+            fail("phase 19: the f64-action decisions differ from the "
+                 "all-float64 replica set's")
+    eq = ladder(torch, AttractiveHubbard, torch.float32, 12, 120, (5.5,) * 6)
+    signs = torch.tensor([1.0, -1.0, -1.0, 1.0, 1.0, -1.0], device="cuda")
+    s = dataclasses.replace(states32, sign=signs)
+    for attempt in (1, 2):
+        p = tt.partner_indices(6, attempt).cuda()
+        before = s
+        s, acc = tt.replica_exchange(eq, cfg, s, attempt,
+                                     tt.exchange_uniforms(gen, 6),
+                                     f64_actions=True)
+        ok = (bool(acc.all()) and torch.equal(s.fields, before.fields[p])
+              and torch.equal(s.sign, before.sign[p]))
+        say(f"phase 19: six equal betas, attempt {attempt}: every pair "
+            f"accepted, fields and signs swapped exactly: {ok}")
+        if not ok:
+            fail("phase 19: equal betas did not swap exactly")
+
+
+def pt_resume(torch):
+    """(d) examples/tempering at its width (6x6, six betas, nt=50,
+    n_stab=10; float32 with f64 actions, spool sink) at a cut depth with
+    checkpoint_every = 1: straight, and stopped in thermalization pair 6
+    (checkpoint after 5) and again in measured sweep 12 (checkpoint after
+    bin 2), resumed each time: fields, G, every generator, the exchange
+    generator, attempt and accepted bit for bit, the bins within
+    RESUME_BIN_REL."""
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.io.checkpoint import peek_meta
+    from dqmc_tpu_torch.parallel import tempering as tt
+    params = Parameters(str(REPO / "examples" / "tempering" /
+                            "parameters.in"))
+    text = params.dumps() + ("[simulation]\nn_therms = 6\nn_sweeps = 5\n"
+                             "n_bins = 4\ncheckpoint_every = 1\n"
+                             "[io]\nsink = spool\n")
+    need = NEED_PT
+    out = Path(tempfile.mkdtemp(prefix="phase19r_"))
+    real, calls = tt.sweep_pair, []
+
+    def stopping(at):
+        def step(*a, **k):
+            calls.append(1)
+            if len(calls) == at:
+                raise _Stop
+            return real(*a, **k)
+        return step
+    try:
+        straight, *_ = run_pt(torch, text, "examples/tempering, 6 + 4x5 "
+                              "pairs straight", need, out / "straight")
+        for at in (6, 13):
+            calls.clear()
+            tt.sweep_pair = stopping(at)
+            try:
+                run_pt(torch, text, "stopped", (), out / "resumed")
+                fail("phase 19: the stopped run was not stopped")
+            except _Stop:
+                pass
+            finally:
+                tt.sweep_pair = real
+            meta = peek_meta(out / "resumed" / "checkpoint.npz")
+            say(f"phase 19: stopped in its pair {at}: checkpoint at bin "
+                f"{meta['bin']}, therm_done {meta['therm_done']}, therm "
+                f"pair {meta['therm_sweep']}")
+        resumed, *_ = run_pt(torch, text, "the same resumed", need,
+                             out / "resumed")
+        ma, mb = (peek_meta(out / d / "checkpoint.npz")
+                  for d in ("straight", "resumed"))
+        hold_chain(torch, "examples/tempering stopped twice and resumed, "
+                   "against straight", straight.states, resumed.states,
+                   phase="phase 19", **{k: ma[k] == mb[k] for k in (
+                       "attempt", "accepted", "exchange_gen")})
+        hold_bins(out / "straight", out / "resumed", 6, 4, phase="phase 19")
+    finally:
+        tt.sweep_pair = real
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def pt_df_exchange(torch):
+    """(e) one replica_exchange_df attempt at bench.py's headline PT scale
+    (16x16, nt=160, betas 8.0-6.0), #7 in its df rebuilds, against the
+    f64 actions' decisions on the same fields and uniforms."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.engine.df_sweep import (df_aux_build, init_state_df,
+                                                stack_aux)
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.parallel import tempering as tt
+    L, nt, betas = PT_HEADLINE
+    cfg = EngineConfig(nt=nt, n_stab=5, use_pallas=True)
+    m32 = ladder(torch, AttractiveHubbard, torch.float32, L, nt, betas)
+    m64 = ladder(torch, AttractiveHubbard, torch.float64, L, nt, betas)
+    aux = stack_aux([df_aux_build(square_lattice(L, L), U=4.0, t=1.0,
+                                  mu=0.0, beta=b, nt=nt, device="cuda")
+                     for b in betas])
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    sdf = init_state_df(m32, aux, cfg, make_generators(11, 6, "cuda"))
+    s64 = f64_walkers(torch, m64, cfg, sdf.fields)
+    u = tt.exchange_uniforms(tt.exchange_generator(11, 6), 6)
+    sdf, adf = tt.replica_exchange_df(aux, cfg, sdf, 1, u)
+    s64, a64 = tt.replica_exchange(m64, cfg, s64, 1, u)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    TOTALS.update(_cuda.LAUNCHES)
+    same = torch.equal(adf, a64) and torch.equal(sdf.fields, s64.fields)
+    say(f"phase 19: df32 exchange at 16x16, nt=160, betas 8.0-6.0 "
+        f"({time.perf_counter() - t0:.1f} s with the df init): decisions "
+        f"{adf.int().tolist()}, f64 actions {a64.int().tolist()}, same "
+        f"{same}, launches {launches}")
+    if not same or not launches.get("df_qr_panel"):
+        fail("phase 19: the df32 exchange disagrees or #7 did not launch")
+
+
+PT_TIER = """
+[Lattice]
+L1 = 8
+L2 = 8
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 4.0
+nt = 20
+n_therms = 1
+n_sweeps = 1
+n_bins = 1
+n_stab = 5
+seed = 11
+dtype = float32
+measure_precision = tf32
+[ParallelTempering]
+enabled = true
+sweep_steps = 1
+betas = 4.0, 3.8, 3.6, 3.4, 3.2, 3.0
+"""
+
+
+def pt_tier(torch):
+    """(f) one tf32-tier measured segment of a PT run at 8x8, nt=20 (ns =
+    64, so #8 runs in every fold) through run_simulation; then the stacked
+    tier's G of the final fields, each replica against its own float64
+    rebuild at n_stab = 1 (<= 1e-9 of its max|G|)."""
+    import dataclasses
+    from dqmc_tpu_torch.engine.parity import measurement_greens_fn_stacked
+    from dqmc_tpu_torch.engine.state import EngineConfig
+    from dqmc_tpu_torch.models import AttractiveHubbard
+    from dqmc_tpu_torch.ops import tf32
+    summary, *_ = run_pt(torch, PT_TIER, "8x8, nt=20, six betas 4.0-3.0, "
+                         "measure_precision = tf32, 1 + 1x1 pairs",
+                         NEED_PT + ("tf_qr_panel",))
+    cfg = EngineConfig(nt=20, n_stab=5, use_pallas=True)
+    m64 = ladder(torch, AttractiveHubbard, torch.float64, 8, 20,
+                 (4.0, 3.8, 3.6, 3.4, 3.2, 3.0))
+    G = measurement_greens_fn_stacked(m64, cfg, tf32)(summary.states)
+    ref = f64_walkers(torch, m64, dataclasses.replace(cfg, n_stab=1),
+                      summary.states.fields).G
+    gap = ((G - ref).abs().amax(dim=(1, 2, 3))
+           / ref.abs().amax(dim=(1, 2, 3)))
+    say(f"phase 19: the stacked tf32 tier against each replica's float64 "
+        f"rebuild: |dG|/max|G| per replica "
+        f"{[f'{float(x):.2e}' for x in gap]} (<= 1e-9)")
+    if not (gap <= 1e-9).all():
+        fail("phase 19: the stacked tf32 tier disagrees with float64")
+
+
+def phase_tempering(torch):
+    """Phase 19: parallel tempering (parallel/tempering.py) on the card,
+    parts (a)-(f) as the module docstring lists them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        say(f"phase 19 ({part}) took {time.perf_counter() - t0:.1f} s")
+        return out
+    timed("a", lambda: pt_sites(torch, gen))
+    doped = timed("c", lambda: pt_doped(torch))
+    timed("b", lambda: pt_exchange(torch, doped.states))
+    timed("d", lambda: pt_resume(torch))
+    timed("e", lambda: pt_df_exchange(torch))
+    timed("f", lambda: pt_tier(torch))
+
+
 def print_registers() -> None:
     """ptxas's registers and spill bytes of every kernel instantiation,
     from one ``nvcc -Xptxas -v`` per source with the build's flags."""
@@ -3294,7 +3721,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "tf_qr_panel": ("dqmc_tpu_torch/csrc/mw_qr_panel.cu",
                     "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+          19)
 # the phases that run, in this order after phase 14, while phase 16 runs
 # in a process of its own: phase 16 is host-bound (~220 s of launches), as
 # are these, and none of them profiles the card but phase 15's two blocks
@@ -3407,7 +3835,8 @@ def main(argv=None) -> None:
              (11, lambda: phase_repulsive(torch)),
              (15, lambda: phase_df32_headline(torch)),
              (17, lambda: phase_tau(torch)),
-             (18, lambda: phase_checkerboard(torch)))
+             (18, lambda: phase_checkerboard(torch)),
+             (19, lambda: phase_tempering(torch)))
     side = None
     for phase, run in steps:
         if phase not in phases:

@@ -55,7 +55,9 @@ class DFModelAux(NamedTuple):
     """df32 twins of the propagator constants: expK (ns, ns) of
     expm(-dtau K) from the float64 build, expv (nfl, 4) the table
     exp(+-g eta(s)) per stored flavor, act (4,) the per-state bosonic
-    action constants -(alpha g eta_v + log gamma_v)."""
+    action constants -(alpha g eta_v + log gamma_v).  A replica-stacked
+    aux (:func:`stack_aux`) holds expK (R, 1, ns, ns), expv (R, nfl, 4)
+    and act (R, 4), walker r taking replica r's."""
     expK: DF
     expv: DF
     act: DF
@@ -90,19 +92,47 @@ def df_aux_build(lat, *, U: float, t: float, mu: float, beta: float,
                       expv=_split64(tbl, device), act=_split64(act, device))
 
 
+def stack_aux(auxs) -> DFModelAux:
+    """One replica-stacked aux from per-replica ones (one beta each; the
+    df twin of ``parallel/walkers.stack_models``)."""
+    st = lambda xs, lead=False: DF(*(  # noqa: E731
+        torch.stack([getattr(x, c) for x in xs])[:, None] if lead
+        else torch.stack([getattr(x, c) for x in xs]) for c in ("hi", "lo")))
+    return DFModelAux(expK=st([a.expK for a in auxs], lead=True),
+                      expv=st([a.expv for a in auxs]),
+                      act=st([a.act for a in auxs]))
+
+
+def df_global_action(aux: DFModelAux, fields: torch.Tensor,
+                     log_det_M: torch.Tensor,
+                     det_power: int = 2) -> torch.Tensor:
+    """S per walker (W,) at df accuracy for replica exchange
+    (model.cpp:140-159): the df chain's log-det (W, nfl) for the
+    fermionic part, and the exact integer state counts dotted with the
+    per-state constants ``aux.act`` as df pairs for the bosonic part."""
+    counts = torch.stack([torch.count_nonzero(fields == v, dim=(-2, -1))
+                          for v in range(4)], dim=-1).to(torch.float32)
+    prod = df32.mul(aux.act, df32.df(counts))
+    tot = df32.df(torch.zeros(counts.shape[:-1], device=fields.device))
+    for v in range(4):
+        tot = df32.add(tot, DF(prod.hi[..., v], prod.lo[..., v]))
+    s_ferm = -det_power * torch.sum(log_det_M, dim=-1)
+    return s_ferm + tot.hi + tot.lo
+
+
 def _slice_B_df(aux: DFModelAux, fields_l: torch.Tensor) -> DF:
     """(W, nfl, ns, ns) df B_l = diag(expv[s_l]) @ expK for fields (W, ns):
     a full df multiply, the field values selected by a chain over the 4
     states."""
     W, ns = fields_l.shape
-    nfl = aux.expv.hi.shape[0]
+    nfl = aux.expv.hi.shape[-2]
     evh = torch.zeros((W, nfl, ns), dtype=torch.float32,
                       device=fields_l.device)
     evl = torch.zeros_like(evh)
     for v in range(4):
         m = (fields_l == v)[:, None, :]
-        evh = torch.where(m, aux.expv.hi[:, v:v + 1], evh)
-        evl = torch.where(m, aux.expv.lo[:, v:v + 1], evl)
+        evh = torch.where(m, aux.expv.hi[..., v:v + 1], evh)
+        evl = torch.where(m, aux.expv.lo[..., v:v + 1], evl)
     return df32.mul(aux.expK, DF(evh[..., :, None], evl[..., :, None]))
 
 
@@ -185,7 +215,7 @@ def rebuild_stack_df(aux: DFModelAux, cfg: EngineConfig,
     """The full right-to-left df stack of a field batch (W, nt, ns), G_df
     (0, 0) and log|det| (W, nfl)."""
     W = fields.shape[0]
-    nfl, ns = aux.expv.hi.shape[0], aux.expK.hi.shape[-1]
+    nfl, ns = aux.expv.hi.shape[-2], aux.expK.hi.shape[-1]
     dev = fields.device
     eyeB = _eye_df(W, nfl, ns, dev)
     n_stab = cfg.n_stab

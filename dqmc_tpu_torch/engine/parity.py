@@ -11,7 +11,9 @@ multiword when ``symmetric``.  :func:`measurement_uneq_fn` is its
 tau-resolved twin: the triplet (Gtt, Gt0, G0t)(tau) rebuilt from the
 fields at the same grade, emitted per tau in float64, with the tier's G00
 as the equal-time G.  The model passed is the float64 build (its expK at
-full precision).
+full precision).  :func:`measurement_greens_fn_stacked` and
+:func:`measurement_uneq_fn_stacked` serve parallel tempering: each
+replica's G is rebuilt with its own beta.
 """
 
 from __future__ import annotations
@@ -344,3 +346,62 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
 
     uneq_step.n_stab = n_stab
     return uneq_step
+
+
+# ----------------------------------------------------------------------
+# replica-stacked tiers (parallel tempering)
+# ----------------------------------------------------------------------
+
+def _per_replica(models64, make):
+    """``make(model64_r)`` for every replica of a stacked float64 model,
+    and ``run(fns, states)`` that applies replica r's to walker r's
+    fields and concatenates the outputs along the walker axis."""
+    import types
+    from dqmc_tpu_torch.parallel.walkers import replica
+    fns = [make(replica(models64, r)) for r in range(models64.n_replicas)]
+
+    def run(states):
+        outs = [fn(types.SimpleNamespace(fields=states.fields[r:r + 1]))
+                for r, fn in enumerate(fns)]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.cat(outs)
+        return tuple(torch.cat(parts) if isinstance(parts[0], torch.Tensor)
+                     else tree_map(lambda *xs: torch.cat(xs), *parts)
+                     for parts in zip(*outs))
+    return fns, run
+
+
+def measurement_greens_fn_stacked(models64, cfg: EngineConfig, nm, *,
+                                  symmetric: bool = False,
+                                  n_stab: int | None = None):
+    """Replica-stacked twin of :func:`measurement_greens_fn` (JAX
+    parity.py:732): ``greens_fn(states) -> G (R, nfl, ns, ns)`` float64,
+    replica r's G rebuilt from its fields with its own beta's expK and g,
+    one replica at a time."""
+    _check_model(models64)
+    fns, run = _per_replica(models64, lambda m: measurement_greens_fn(
+        m, cfg, nm, symmetric=symmetric, n_stab=n_stab))
+    run.n_stab = fns[0].n_stab
+    return run
+
+
+def measurement_uneq_fn_stacked(models64, cfg: EngineConfig, nm, measure_fn,
+                                *, symmetric: bool = False,
+                                n_stab: int | None = None,
+                                emit_greens: bool = False):
+    """Replica-stacked twin of :func:`measurement_uneq_fn` (JAX
+    parity.py:767), replica r's triplet rebuilt with its own beta.  One
+    stride for the ladder: the df32 cap takes the largest beta (the
+    largest dtau), so every replica keeps the tier's grade."""
+    _check_model(models64)
+    if n_stab is None or n_stab <= 0:
+        n_stab = cfg.n_stab
+        if nm is df32:
+            dtau = float(models64.beta.max()) / cfg.nt
+            n_stab = max(1, min(n_stab, int(0.4 / dtau)))
+    n_stab = _divisor_stride(cfg.nt, n_stab)
+    fns, run = _per_replica(models64, lambda m: measurement_uneq_fn(
+        m, cfg, nm, measure_fn, symmetric=symmetric, n_stab=n_stab,
+        emit_greens=emit_greens))
+    run.n_stab = n_stab
+    return run

@@ -137,7 +137,9 @@ def model_from_numpy(*, n_sites, nt, expK, invexpK, expK_half, invexpK_half,
                      dtype=None, device="cpu"):
     """The port's model from a JAX model's arrays (numpy): the attractive
     model for one stored flavor with det_power 2, the repulsive one for two
-    flavors with det_power 1."""
+    flavors with det_power 1.  The leaves of the JAX package's
+    ``stack_models`` (a leading replica axis on expK and its siblings, g,
+    alpha and beta) give the port's replica-stacked model."""
     from dqmc_tpu_torch import hsfield
     from dqmc_tpu_torch.models import MODEL_REGISTRY
     kinds = {(c.N_FLAVOR, c.DET_POWER): c for c in MODEL_REGISTRY.values()}

@@ -5,7 +5,9 @@ driver, stack rebuild and initialization.
 PyTorch counterpart of ``dqmc_tpu/engine/sweep.py``.  Everything is
 walker-batched: stack leaves are (W, nfl, n_slots, ...), G is
 (W, nfl, ns, ns), fields are (W, nt, ns).  Where the JAX package vmaps
-``sweep`` over walkers, :func:`sweep` takes the walker axis directly.
+``sweep`` over walkers, :func:`sweep` takes the walker axis directly; a
+replica-stacked model (``parallel/walkers.stack_models``) runs walker r
+with replica r's constants, as JAX's vmap over stacked models does.
 
 Each slice wraps G through B = diag(expV) expK (torch.matmul), runs the
 site update, and extends the block product; every n_stab slices the block
@@ -30,6 +32,7 @@ import torch
 
 from dqmc_tpu_torch import hsfield
 from dqmc_tpu_torch.engine.state import EngineConfig, WalkerState
+from dqmc_tpu_torch.models.attractive_hubbard import lead
 from dqmc_tpu_torch.models.kinetic import (apply_B_left, apply_B_right,
                                            apply_invB_left, apply_invB_right)
 from dqmc_tpu_torch.ops import kernels
@@ -144,7 +147,9 @@ def local_update_core(model, G: torch.Tensor, fields_l: torch.Tensor,
 # ----------------------------------------------------------------------
 
 def _couplings(model, W: int):
-    return model.g.expand(W), model.alpha.expand(W)
+    """Per-walker (g, alpha) (W,): one model's, or a replica-stacked
+    model's one per replica."""
+    return model.g.reshape(-1).expand(W), model.alpha.reshape(-1).expand(W)
 
 
 def local_update_slice(model, G, fields_l, order, props, us):
@@ -409,4 +414,5 @@ def reset_error_stats(state: WalkerState) -> WalkerState:
 def half_warp(model, G: torch.Tensor) -> torch.Tensor:
     """G~ = expm(+dtau K/2) G expm(-dtau K/2) (dqmc.cpp:288-315): the
     symmetric-Trotter measurement transform."""
-    return model.invexpK_half @ G @ model.expK_half
+    return (lead(model.invexpK_half, 2, G.dim()) @ G
+            @ lead(model.expK_half, 2, G.dim()))

@@ -74,6 +74,7 @@ class MeasurementManager:
         self.current_bin = start_bin       # a resume continues the numbering
         self._append = start_bin > 0
         self.bin_scalars: list = []        # per bin: name -> walker mean
+        self.bin_walker_scalars: list = []  # per bin: name -> (W,) values
         self._scalar_fns: Dict[str, Callable] = {}
         self._eq_fns: Dict[str, Callable] = {}
         self._uneq_fns: Dict[str, Callable] = {}
@@ -226,6 +227,7 @@ class MeasurementManager:
         err_u = float(acc[ERR_UNEQ]) if ERR_UNEQ in acc else 0.0
         self.bin_scalars.append({n: float(v.mean())
                                  for n, v in scalars.items()})
+        self.bin_walker_scalars.append(scalars)
         self.current_bin += 1
         if self.out_dir is None:
             return err_u

@@ -12,6 +12,14 @@ g = sqrt(dtau |U| / 2).  The model is spin-symmetric: one stored flavor
 (``det_power = 2``).  The matrix exponentials are taken once in host f64
 with scipy, exactly as in the JAX package, then moved to the device.
 
+A replica-stacked model (``parallel/walkers.stack_models``, one beta per
+parallel-tempering replica) keeps this dataclass with its per-beta leaves
+stacked along a leading replica axis: expK and its three siblings
+(R, ns, ns), g, alpha and beta (R,).  Every use reads them through
+:func:`lead`, which puts the replica axis on the walker axis of the tensor
+they meet (walker r is replica r), so the engines run a stacked model as
+they run one model.
+
 ``checkerboard = True`` adds the checkerboard tables of
 ``models/kinetic.py`` (``cb_perm``, ``cb_mask``, ``cb_ch``, ``cb_sh``,
 ``cb_emu``), through which the engine then applies every kinetic factor
@@ -31,6 +39,17 @@ import torch
 from dqmc_tpu_torch import hsfield
 from dqmc_tpu_torch.config import Parameters
 from dqmc_tpu_torch.lattice import Lattice, bonds_with_tp
+
+
+def lead(x: torch.Tensor, core: int, ndim: int) -> torch.Tensor:
+    """A model leaf with ``core`` axes of its own, shaped to broadcast
+    against a walker-batched tensor of ``ndim`` axes: a replica-stacked
+    leaf (one axis more than ``core``) gets ones between its replica axis,
+    which meets the walker axis, and its core axes; an unstacked leaf is
+    returned as it is."""
+    if x.dim() == core:
+        return x
+    return x.reshape(x.shape[:1] + (1,) * (ndim - 1 - core) + x.shape[1:])
 
 
 def build_kinetic_matrix(lat: Lattice, t: float, mu: float,
@@ -70,6 +89,7 @@ class AttractiveHubbard:
     eta: torch.Tensor        # (4,) GHQ node values
     gamma: torch.Tensor      # (4,) GHQ weights
     beta: torch.Tensor       # () inverse temperature
+    # replica-stacked models: expK* (R, ns, ns), g, alpha, beta (R,)
     # checkerboard kinetics (models/kinetic.py); None in dense mode
     checkerboard: bool = False
     cb_perm: torch.Tensor | None = None   # (4, ns) bond-partner permutations
@@ -122,7 +142,8 @@ class AttractiveHubbard:
 
     @classmethod
     def from_params(cls, params: Parameters, lat: Lattice, *,
-                    dtype=torch.float64, device="cpu"):
+                    beta: float | None = None, dtype=torch.float64,
+                    device="cpu"):
         geometry = params.get_str("Lattice", "geometry", "square")
         bonds = bonds_with_tp(geometry,
                               params.get_float("hubbard", "tp", 0.0))
@@ -131,7 +152,8 @@ class AttractiveHubbard:
             U=params.get_float("hubbard", "U"),
             t=params.get_float("hubbard", "t"),
             mu=params.get_float("hubbard", "mu"),
-            beta=params.get_float("simulation", "beta"),
+            beta=(params.get_float("simulation", "beta") if beta is None
+                  else beta),
             nt=params.get_int("simulation", "nt"),
             dtype=dtype, device=device,
             checkerboard=params.get_bool("hubbard", "checkerboard", False),
@@ -146,6 +168,11 @@ class AttractiveHubbard:
     def device(self) -> torch.device:
         return self.expK.device
 
+    @property
+    def n_replicas(self) -> int:
+        """The replica count of a stacked model, 0 for one model."""
+        return self.g.shape[0] if self.g.dim() else 0
+
     # ------------------------------------------------------------------
     # propagator pieces
     # ------------------------------------------------------------------
@@ -153,7 +180,8 @@ class AttractiveHubbard:
     def expV_diag(self, fields_l: torch.Tensor) -> torch.Tensor:
         """diag of exp(+V): (..., nfl, ns) = exp(g * eta(s)) for fields
         (..., ns) (model.cpp:62-72)."""
-        return torch.exp(self.g * self.eta[fields_l])[..., None, :]
+        g = lead(self.g, 0, fields_l.dim())
+        return torch.exp(g * self.eta[fields_l])[..., None, :]
 
     # ------------------------------------------------------------------
     # local-update math (model.cpp:90-122)
@@ -181,12 +209,15 @@ class AttractiveHubbard:
     def global_action(self, fields: torch.Tensor,
                       log_det_M: torch.Tensor) -> torch.Tensor:
         """S = -det_power sum_flv log|det M_flv|
-               - sum_i (alpha g eta_i + log gamma_i),
-        with the bosonic sum taken as exact state counts times per-state
-        constants (load-bearing for f32 chains)."""
-        s_ferm = -self.det_power * torch.sum(log_det_M)
-        counts = torch.stack([torch.count_nonzero(fields == v)
-                              for v in range(4)]).to(self.eta.dtype)
-        log_boson = self.alpha * self.g * torch.sum(counts * self.eta)
-        log_gamma = torch.sum(counts * torch.log(self.gamma))
+               - sum_i (alpha g eta_i + log gamma_i)
+        per walker: fields (..., nt, ns) and log_det_M (..., nfl) give S
+        (...), with the bosonic sum taken as exact state counts times
+        per-state constants (load-bearing for f32 chains)."""
+        s_ferm = -self.det_power * torch.sum(log_det_M, dim=-1)
+        counts = torch.stack([torch.count_nonzero(fields == v, dim=(-2, -1))
+                              for v in range(4)], dim=-1).to(self.eta.dtype)
+        nb = counts.dim() - 1
+        log_boson = (lead(self.alpha, 0, nb) * lead(self.g, 0, nb)
+                     * torch.sum(counts * self.eta, dim=-1))
+        log_gamma = torch.sum(counts * torch.log(self.gamma), dim=-1)
         return s_ferm - log_boson - log_gamma

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``dqmc_tpu/models/kinetic.py``: the engine never
 needs exp(-dtau K) alone, only the four products with B = diag(expV) expK.
 ``X`` carries any leading batch axes and ``fields_l`` the matching leading
-axes without the flavor axis.  The branch follows the model's
-``checkerboard`` flag:
+axes without the flavor axis; a replica-stacked model's exp(-dtau K)
+meets X's walker axis (``attractive_hubbard.lead``).  The branch follows
+the model's ``checkerboard`` flag:
 
 - dense: one matrix product with the precomputed exp(-dtau K);
 - checkerboard: exp(-dtau K_hop) ~= prod_g exp(-dtau K_g) over the square
@@ -25,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from dqmc_tpu_torch.models.attractive_hubbard import lead
 
 
 def build_checkerboard(lat, t: float, dtau: float):
@@ -68,7 +71,7 @@ def _apply_groups(X, perms, masks, ch, sh, *, reverse: bool):
 def _kin_left(model, X, *, inv: bool):
     """exp(-+dtau K) @ X."""
     if not model.checkerboard:
-        return (model.invexpK if inv else model.expK) @ X
+        return lead(model.invexpK if inv else model.expK, 2, X.dim()) @ X
     if inv:
         # reverse order, sinh -> -sinh, 1/emu
         return _apply_groups(X, model.cb_perm, model.cb_mask, model.cb_ch,
@@ -84,7 +87,7 @@ def _kin_right(model, X, *, inv: bool):
     in the forward order).  The JAX package applies P^T itself here
     (ROADMAP.md section 3, "Faults of the reference")."""
     if not model.checkerboard:
-        return X @ (model.invexpK if inv else model.expK)
+        return X @ lead(model.invexpK if inv else model.expK, 2, X.dim())
     XT = X.transpose(-1, -2)
     if inv:
         YT = _apply_groups(XT, model.cb_perm, model.cb_mask, model.cb_ch,

@@ -29,7 +29,7 @@ import dataclasses
 
 import torch
 
-from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard
+from dqmc_tpu_torch.models.attractive_hubbard import AttractiveHubbard, lead
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +40,7 @@ class RepulsiveHubbard(AttractiveHubbard):
 
     def expV_diag(self, fields_l: torch.Tensor) -> torch.Tensor:
         """(..., 2, ns): up sees exp(+g eta(s)), down exp(-g eta(s))."""
-        v = self.g * self.eta[fields_l]
+        v = lead(self.g, 0, fields_l.dim()) * self.eta[fields_l]
         return torch.stack([torch.exp(v), torch.exp(-v)], dim=-2)
 
     def update_factors(self, old: torch.Tensor, new: torch.Tensor):

@@ -46,6 +46,11 @@ included, at the n_stab it had adapted to, continuing the bin numbering.
 (``io/spool.py``, numpy only) and converts them to ``data_<w>.h5`` at the
 end where h5py is installed.
 
+``[ParallelTempering] enabled = true`` runs one walker per beta of
+``betas`` on the per-slice engine with replica exchange every
+``sweep_steps`` measured sweeps (``parallel/tempering.py``), replica r's
+bins in ``data_<r>``.
+
 ``[simulation] engine``: ``auto`` takes the fused engine on CUDA in float32
 when it supports the model (ns <= 512, dense kinetics, rank-k buffers that
 fit one CTA's shared memory) and the per-slice engine otherwise, as the JAX
@@ -98,8 +103,6 @@ def _unported(params: Parameters):
     get_s, get_b, get_i = params.get_str, params.get_bool, params.get_int
     return [
         (what, item) for on, what, item in [
-            (get_b("ParallelTempering", "enabled", False),
-             "parallel tempering", "slice 3, parallel/tempering.py"),
             (get_i("walkers", "n_devices", 0) > 1, "n_devices > 1",
              "slice 3, devices"),
             (bool(get_s("distributed", "coordinator_address", "")),
@@ -211,6 +214,8 @@ class RunSummary:
     walker_signs: list = dataclasses.field(default_factory=list)
     # the final walker states (WalkerState, or DFWalkerState for df32)
     states: object = None
+    # parallel tempering: accepted exchanges per attempt (0.0 without PT)
+    exchange_rate: float = 0.0
 
 
 def _stats(states) -> dict:
@@ -244,6 +249,10 @@ def run_simulation(params: Parameters, *, out_dir: str | None = "results",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if params.get_bool("ParallelTempering", "enabled", False):
+        from dqmc_tpu_torch.parallel.tempering import run_parallel_tempering
+        return run_parallel_tempering(params, out_dir=out_dir,
+                                      verbose=verbose, device=device)
     log = print if verbose else (lambda *a, **k: None)
 
     dtype, df_mode = _resolve_dtype(params, device)

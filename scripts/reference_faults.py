@@ -5,6 +5,7 @@ measured on the CPU with the JAX package itself.
 
     python3 scripts/reference_faults.py checkerboard   # ~1 minute
     python3 scripts/reference_faults.py bins           # ~1 minute
+    python3 scripts/reference_faults.py tempering      # ~2 minutes
 
 ``checkerboard`` (6x6, beta = 2, nt = 16, n_stab = 4, U = 4, mu = -0.1,
 float64 unless named; on a 4x4 torus the four bond groups commute and
@@ -27,6 +28,15 @@ resumes it with the same parameters (4x4, 4 bins): the spool sink with
 checkpoint_every = 1 killed in the 3rd bin, and the h5 sink with
 checkpoint_every = 2 killed in the 4th; it prints the bins each file
 holds after the kill and after the resume.
+
+``tempering`` runs the JAX package's parallel-tempering driver (2x2,
+nt = 8, four betas, float64, 4 bins of 3 sweeps, an attempt every 2
+sweeps, checkpoint_every = 1) straight, and again stopped after bin 1 and
+resumed, recording every checkpoint's metadata and every exchange
+attempt's key: where the resumed run's attempts draw their coins, how
+many attempts each run makes, whether any checkpoint is taken during the
+thermalization, and whether the resumed chain ends where the straight one
+does.
 """
 
 from __future__ import annotations
@@ -255,8 +265,95 @@ def bins() -> None:
                   flush=True)
 
 
+PT_PARAMS = """
+[Lattice]
+L1 = 2
+L2 = 2
+[hubbard]
+U = 4.0
+t = 1.0
+mu = -0.1
+[simulation]
+beta = 2.0
+nt = 8
+n_therms = 6
+n_sweeps = 3
+n_bins = {n_bins}
+n_stab = 4
+seed = 5
+checkpoint_every = 1
+dtype = float64
+[ParallelTempering]
+enabled = true
+sweep_steps = 2
+betas = 2.0, 1.6, 1.3, 1.0
+"""
+
+
+def tempering() -> None:
+    jax = _jax()
+    import numpy as np
+    from dqmc_tpu.config import Parameters
+    from dqmc_tpu.io import checkpoint as ck
+    from dqmc_tpu.parallel import tempering as pt
+    saves, keys = [], []
+    real_save, real_ex = ck.save_checkpoint, pt.replica_exchange
+
+    def save(path, states, meta):
+        saves.append(dict(meta))
+        return real_save(path, states, meta)
+
+    def exchange(models, cfg, states, attempt, key, **kw):
+        keys.append((int(attempt), tuple(np.asarray(
+            jax.random.key_data(key) if hasattr(jax.random, "key_data")
+            else key).tolist())))
+        return real_ex(models, cfg, states, attempt, key, **kw)
+
+    def run(d, n_bins):
+        saves.clear()
+        keys.clear()
+        s = pt.run_parallel_tempering(
+            Parameters.from_string(PT_PARAMS.format(n_bins=n_bins)),
+            out_dir=str(d), verbose=False)
+        path = os.path.join(d, "checkpoint.npz")
+        with np.load(path) as z:
+            leaves = {k: z[k] for k in z.files if k != "__meta__"}
+        return s, list(saves), list(keys), ck.peek_meta(path), leaves
+
+    ck.save_checkpoint, pt.replica_exchange = save, exchange
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = run(os.path.join(tmp, "a"), 4)
+            first = run(os.path.join(tmp, "b"), 1)
+            resumed = run(os.path.join(tmp, "b"), 4)
+    finally:
+        ck.save_checkpoint, pt.replica_exchange = real_save, real_ex
+    (sa, a_saves, a_keys, a_meta, a_leaves) = straight
+    print(f"reference_faults tempering: straight run: checkpoints "
+          f"{[(m['bin'], m['therm_done']) for m in a_saves]} (bin, "
+          f"therm_done) -- the first after all 6 thermalization pairs; "
+          f"attempts {[k[0] for k in a_keys]}, final attempt "
+          f"{a_meta['attempt']}, accepted {a_meta['accepted']}", flush=True)
+    print(f"reference_faults tempering: stopped after bin 1: attempts "
+          f"{[k[0] for k in first[2]]}; resumed to 4 bins: attempts "
+          f"{[k[0] for k in resumed[2]]}, final attempt "
+          f"{resumed[3]['attempt']}, accepted {resumed[3]['accepted']}",
+          flush=True)
+    redrawn = [k for k in resumed[2] if k[1] in {x[1] for x in a_keys[:2]}]
+    print(f"reference_faults tempering: the resumed run's first attempt "
+          f"({resumed[2][0][0]}) draws the key of the straight run's attempt "
+          f"{[x[0] for x in a_keys if x[1] == resumed[2][0][1]]} "
+          f"(redrawn coins: {len(redrawn)})", flush=True)
+    same = sum(np.array_equal(v, resumed[4][k]) for k, v in a_leaves.items())
+    print(f"reference_faults tempering: the final checkpoints' state "
+          f"leaves equal in {same} of {len(a_leaves)}; exchange rate "
+          f"straight {sa.exchange_rate:.4f}, stopped and resumed "
+          f"{resumed[0].exchange_rate:.4f}", flush=True)
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
-    if mode not in ("checkerboard", "bins"):
+    if mode not in ("checkerboard", "bins", "tempering"):
         sys.exit(__doc__)
-    {"checkerboard": checkerboard, "bins": bins}[mode]()
+    {"checkerboard": checkerboard, "bins": bins,
+     "tempering": tempering}[mode]()

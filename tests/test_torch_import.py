@@ -60,7 +60,6 @@ n_stab = 4
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("ParallelTempering", "enabled", "true"),
     ("walkers", "n_devices", "2"),
     ("simulation", "wrap_precision", "default"),
     ("simulation", "matmul_precision", "default"),
