@@ -155,14 +155,27 @@ non-zero):
     betas 8.0-6.0; #7) against the f64 actions' decisions; (f) a tf32-tier
     PT segment at 8x8, nt=20 (#8), each replica's tier G within 1e-9 of
     max|G| of its float64 rebuild.
+20. walkers across devices and processes (parallel/distributed.py,
+    parallel/walkers.py): the headline (W = 16) in float32 on the fused
+    engine (2 + 1x4 pairs) and in float64 on the per-slice engine (1 +
+    1x1) run in one process, with its walkers in two chunks on [cuda:0,
+    cuda:0], and in two processes on gloo sharing cuda:0 (8 walkers
+    each, spawned, joined with a timeout): fields bit for bit against the
+    one-process run, bins within 1e-12 (float64) or 1e-4 (float32, the
+    atomics of index_add_) of each array's largest value; the doped PT
+    scale (2 + 1x10 pairs) in one process and in two processes of three
+    replicas: fields, exchange rate and bins alike; one float32 pair over
+    [cuda:0, cuda:0] traced into profile_dir, whose Chrome trace must
+    name the fused kernels; the two processes' summed rate against one
+    process's, printed.
 
 The phases run in the order 2-3, 5-10, 12-14, then phase 16 in a spawned
 process of its own (its launch counts come back to this one) while phases
 4, 11 and 15 run here (those four are host-bound, so their rates and
-phase 15's profile are taken beside one another), then 17, 18 and 19,
-alone; every
+phase 15's profile are taken beside one another), then 17, 18, 19 and
+20, alone; every
 kernel time of the kernels line is taken in phases 2-14, alone.  Every phase that drives a
-main path (4, 5, 7, 8, 11, 12, 13, 15-19) sets the launch counters to 0
+main path (4, 5, 7, 8, 11, 12, 13, 15-20) sets the launch counters to 0
 just before and reads them just after; the tau runs also count the
 launches made inside their tau sweeps.  The line
 before the last is one JSON object describing every kernel; the last line
@@ -3668,6 +3681,272 @@ def phase_tempering(torch):
     timed("f", lambda: pt_tier(torch))
 
 
+# phase 20: walkers and replicas across devices and processes.  The
+# headline (bench.py:31) at a cut depth: float32 on the fused engine
+# (2 + 1x4 pairs), float64 on the per-slice engine (1 + 1x1 pairs); the
+# doped PT scale at 2 + 1x10 pairs (one exchange attempt)
+SPLIT_HEADLINE = """
+[Lattice]
+L1 = 16
+L2 = 16
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 8.0
+nt = 160
+n_stab = 5
+n_bins = 1
+seed = 20
+[io]
+sink = spool
+[walkers]
+n_walkers = 16
+"""
+SPLIT_CASES = (  # (label, extra keys, kernels of the path)
+    ("float32 fused", "[simulation]\ndtype = float32\nengine = fused\n"
+     "n_therms = 2\nn_sweeps = 4\n", ("cgs2_qr", "fused_wrap",
+                                      "fused_sites")),
+    ("float64 per slice", "[simulation]\ndtype = float64\nengine = slice\n"
+     "n_therms = 1\nn_sweeps = 1\n", ("delayed_slice",)))
+SPLIT_PT = PT_DOPED + "[simulation]\nn_therms = 2\nn_bins = 1\n"
+# the float64 bins of two splits: index_add_'s float64 atomics add in any
+# order, a wrong walker differs at O(1)
+SPLIT_BIN_REL_F64 = 1e-12
+SPLIT_JOIN_S = 300
+
+
+def _split_rank(rank: int, port: int, jobs, go, conn) -> None:
+    """One process of phase 20's two-process runs on the card: it reaches
+    the card, waits for ``go``, then runs ``jobs`` (parameter text, output
+    directory) in the group [distributed] forms and sends back each run's
+    fields, summary and launch counts (a failed run exits non-zero)."""
+    import torch
+    sys.path.insert(0, str(REPO))
+    exact_matmuls(torch)
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.run import run_simulation
+    _cuda.lib()
+    torch.zeros(1, device="cuda")
+    go.wait()
+    out = []
+    for text, out_dir in jobs:
+        params = Parameters.from_string(
+            text + f"[distributed]\nnum_processes = 2\nprocess_id = "
+            f"{rank}\ncoordinator_address = 127.0.0.1:{port}\n"
+            f"timeout = 120\n")
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        s = run_simulation(params, out_dir=out_dir, device="cuda",
+                           verbose=False)
+        torch.cuda.synchronize()
+        out.append(dict(fields=s.states.fields.cpu().numpy(),
+                        rate=s.sweeps_per_sec, acc=s.acc_rate,
+                        err=s.max_precision_error,
+                        exchange=s.exchange_rate,
+                        launches=dict(_cuda.LAUNCHES)))
+    conn.send(out)
+
+
+class SplitRanks:
+    """Phase 20's two processes (spawned, daemons), sharing cuda:0."""
+
+    def __init__(self, jobs):
+        import socket
+        ctx = mp.get_context("spawn")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.go = ctx.Event()
+        self.procs, self.conns = [], []
+        for rank in range(2):
+            conn, child = ctx.Pipe(duplex=False)
+            p = ctx.Process(target=_split_rank, daemon=True,
+                            args=(rank, port, jobs, self.go, child))
+            p.start()
+            child.close()
+            self.procs.append(p)
+            self.conns.append(conn)
+
+    def run(self):
+        """Start the jobs and wait for both processes; a process that
+        fails or outlives SPLIT_JOIN_S fails the phase."""
+        self.go.set()
+        t0 = time.perf_counter()
+        outs = []
+        for rank, (p, conn) in enumerate(zip(self.procs, self.conns)):
+            left = max(1.0, SPLIT_JOIN_S - (time.perf_counter() - t0))
+            try:
+                if not conn.poll(left):
+                    raise EOFError
+                outs.append(conn.recv())
+            except EOFError:
+                p.join(5)
+                for q in self.procs:
+                    q.terminate()
+                fail(f"phase 20: process {rank} of 2 sent nothing in "
+                     f"{SPLIT_JOIN_S} s (exit code {p.exitcode})")
+            p.join(30)
+            if p.is_alive() or p.exitcode != 0:
+                p.terminate()
+                fail(f"phase 20: process {rank} of 2 exited with "
+                     f"{p.exitcode}")
+        for out in outs:
+            for job in out:
+                TOTALS.update(job["launches"])
+        return time.perf_counter() - t0, outs
+
+
+def split_run(torch, text, out_dir, need, devices=None):
+    """One in-process run of phase 20 (``devices``: its chunks), the
+    launch counters set to 0 just before and read just after."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.run import run_simulation
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    s = run_simulation(Parameters.from_string(text), out_dir=out_dir,
+                       device="cuda", verbose=False, devices=devices)
+    torch.cuda.synchronize()
+    TOTALS.update(_cuda.LAUNCHES)
+    missing = [k for k in need if not _cuda.LAUNCHES[k]]
+    if missing:
+        fail(f"phase 20: kernels of the path not launched: {missing}")
+    return s
+
+
+def split_bins(dir_a, dir_b, W):
+    """(arrays bit for bit, arrays, the largest gap of an array over its
+    largest value, that array's name) between two runs' spool logs."""
+    import numpy as np
+    from dqmc_tpu_torch.io.spool import read_bins
+    worst, exact, total, where = 0.0, 0, 0, ""
+    for w in range(W):
+        A = read_bins(dir_a / f"data_{w}.spool")
+        B = read_bins(dir_b / f"data_{w}.spool")
+        if sorted(A) != sorted(B) or not A:
+            fail(f"phase 20: walker {w}: bins {sorted(A)} against "
+                 f"{sorted(B)}")
+        for b in A:
+            for group, vals in A[b].items():
+                for name, x in vals.items():
+                    x, y = np.asarray(x), np.asarray(B[b][group][name])
+                    scale = max(float(np.abs(x).max()), 1e-300)
+                    g = float(np.abs(x - y).max()) / scale
+                    if g > worst:
+                        worst, where = g, f"{group}/{name}"
+                    exact += bool(np.array_equal(x, y))
+                    total += 1
+    return exact, total, worst, where
+
+
+def phase_split(torch, card):
+    """Phase 20: the headline split three ways, one process, its walkers
+    in two chunks on [cuda:0, cuda:0], and two processes on gloo sharing
+    cuda:0 with 8 walkers each, in float32 (fused) and float64 (per
+    slice), and one more float32 pair on [cuda:0, cuda:0] traced into
+    profile_dir; the doped PT scale
+    in one process and in two processes of 3 replicas.  float64: fields
+    bit for bit, bins within SPLIT_BIN_REL_F64 of each array's largest
+    value; float32 and PT: fields bit for bit, bins within
+    RESUME_BIN_REL; PT's exchange rate equal; the trace names the fused
+    kernels; the two processes' summed rate against one process's,
+    printed."""
+    import numpy as np
+    out = Path(tempfile.mkdtemp(prefix="phase20_"))
+    jobs = [(SPLIT_HEADLINE + extra, str(out / f"mp{i}"))
+            for i, (_, extra, _) in enumerate(SPLIT_CASES)]
+    jobs.append((SPLIT_PT, str(out / "mp_pt")))
+    ranks = SplitRanks(jobs)
+    try:
+        # the one-process float32 run, whose rate (d) compares, last,
+        # when the two processes wait on the card with their imports done
+        one, two = {}, {}
+        t0 = time.perf_counter()
+        for i, (label, extra, need) in enumerate(SPLIT_CASES):
+            two[i] = split_run(torch, SPLIT_HEADLINE + extra,
+                               str(out / f"dev{i}"), need,
+                               devices=["cuda:0", "cuda:0"])
+        # (c) one measured float32 pair over [cuda:0, cuda:0], traced
+        t1 = time.perf_counter()
+        split_run(torch, SPLIT_HEADLINE + SPLIT_CASES[0][1]
+                  + f"n_therms = 0\nn_sweeps = 1\nprofile_dir = "
+                  f"{out / 'trace'}\n", str(out / "traced"),
+                  SPLIT_CASES[0][2], devices=["cuda:0", "cuda:0"])
+        t_trace = time.perf_counter() - t1
+        pt_one = split_run(torch, SPLIT_PT, str(out / "one_pt"), NEED_PT)
+        for i in reversed(range(len(SPLIT_CASES))):
+            one[i] = split_run(torch, SPLIT_HEADLINE + SPLIT_CASES[i][1],
+                               str(out / f"one{i}"), SPLIT_CASES[i][2])
+        t_here = time.perf_counter() - t0
+        wall, ranked = ranks.run()
+        say(f"phase 20: the runs in this process took {t_here:.1f} s (the "
+            f"traced one {t_trace:.1f} s), the two processes' {wall:.1f} s")
+        for i, (label, _, _) in enumerate(SPLIT_CASES):
+            ref = one[i].states.fields.cpu().numpy()
+            mp_fields = np.concatenate([r[i]["fields"] for r in ranked])
+            same = {"[cuda:0, cuda:0]": np.array_equal(
+                        two[i].states.fields.cpu().numpy(), ref),
+                    "two processes": np.array_equal(mp_fields, ref)}
+            bins = {k: split_bins(out / f"one{i}", out / d, 16)
+                    for k, d in (("[cuda:0, cuda:0]", f"dev{i}"),
+                                 ("two processes", f"mp{i}"))}
+            rel = (SPLIT_BIN_REL_F64 if "float64" in label
+                   else RESUME_BIN_REL)
+            rate1, rate2 = one[i].sweeps_per_sec, ranked[0][i]["rate"]
+            say(f"phase 20: headline {label}, 16 walkers: fields bit for "
+                f"bit against one process: " + ", ".join(
+                    f"{k} {v}" for k, v in same.items()) + "; bins: "
+                + ", ".join(f"{k} {e} of {t} arrays bit for bit, largest "
+                            f"gap {w:.3e} of max|x| ({n})"
+                            for k, (e, t, w, n) in bins.items())
+                + f" (<= {rel:.0e}); acceptance {one[i].acc_rate:.6f} / "
+                f"{two[i].acc_rate:.6f} / {ranked[0][i]['acc']:.6f}, "
+                f"self-check max {one[i].max_precision_error:.3e} / "
+                f"{two[i].max_precision_error:.3e} / "
+                f"{ranked[0][i]['err']:.3e}; rate one process "
+                f"{rate1:.3f}, two chunks {two[i].sweeps_per_sec:.3f}, two "
+                f"processes summed {rate2:.3f} walker-sweep-pairs/s "
+                f"(ratio {rate2 / rate1:.3f}) on {card}")
+            if not all(same.values()):
+                fail(f"phase 20: {label}: a split run's fields part from "
+                     f"the unsplit run's")
+            if any(b[2] > rel for b in bins.values()):
+                fail(f"phase 20: {label}: a split run's bins differ")
+        ref = pt_one.states.fields.cpu().numpy()
+        mp_fields = np.concatenate([r[-1]["fields"] for r in ranked])
+        e, t, w, n = split_bins(out / "one_pt", out / "mp_pt", 6)
+        rates = [pt_one.exchange_rate, ranked[0][-1]["exchange"],
+                 ranked[1][-1]["exchange"]]
+        say(f"phase 20: doped PT (12x12, nt=120, six betas, float32, f64 "
+            f"actions), 2 + 1x10 pairs, one exchange attempt: two "
+            f"processes x 3 replicas against one process: fields bit for "
+            f"bit {np.array_equal(mp_fields, ref)}, exchange rate "
+            f"{rates}, bins {e} of {t} arrays bit for bit, largest gap "
+            f"{w:.3e} of max|x| ({n}; <= {RESUME_BIN_REL:.0e}); rate one "
+            f"process {pt_one.sweeps_per_sec:.3f}, two processes "
+            f"{ranked[0][-1]['rate']:.3f} replica-sweep-pairs/s")
+        if not (np.array_equal(mp_fields, ref) and len(set(rates)) == 1
+                and w <= RESUME_BIN_REL):
+            fail("phase 20: the two-process PT run parts from the "
+                 "one-process run")
+        trace = (out / "trace" / "trace_0.json").read_text()
+        named = {k: k in trace for k in ("site_loop_kernel",
+                                         "wrap_gemm_kernel")}
+        say(f"phase 20: profile_dir trace of the first measured bin "
+            f"({len(trace) / 2**20:.1f} MiB): names {named}")
+        if not all(named.values()):
+            fail("phase 20: the profile_dir trace does not name the fused "
+                 "kernels")
+    finally:
+        for p in ranks.procs:
+            if p.is_alive():
+                p.terminate()
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def print_registers() -> None:
     """ptxas's registers and spill bytes of every kernel instantiation,
     from one ``nvcc -Xptxas -v`` per source with the build's flags."""
@@ -3722,7 +4001,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                     "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19)
+          19, 20)
 # the phases that run, in this order after phase 14, while phase 16 runs
 # in a process of its own: phase 16 is host-bound (~220 s of launches), as
 # are these, and none of them profiles the card but phase 15's two blocks
@@ -3836,7 +4115,8 @@ def main(argv=None) -> None:
              (15, lambda: phase_df32_headline(torch)),
              (17, lambda: phase_tau(torch)),
              (18, lambda: phase_checkerboard(torch)),
-             (19, lambda: phase_tempering(torch)))
+             (19, lambda: phase_tempering(torch)),
+             (20, lambda: phase_split(torch, card)))
     side = None
     for phase, run in steps:
         if phase not in phases:

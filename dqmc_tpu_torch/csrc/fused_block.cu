@@ -367,11 +367,11 @@ int launch_sites(T* G, T* mask, long long s_mask, const int* order,
   if (n <= 0 || n > 512 || k <= 0 || k > KMAX || n % k != 0 || batch <= 0 ||
       batch > 65535 || (NFL == 2 && sgn == nullptr))
     return (int)cudaErrorInvalidValue;
-  static dqmc::SiteLaunchCache cache;
+  static dqmc::SiteLaunchCache caches;
   const dqmc::SiteLoopArgs<T> args{G,  mask,  s_mask,   order, 0,   gb, delta,
                                    us, s_stream, sgn, n,     k,   false};
   return dqmc::launch_site_loop<T>(
-      NFL == 1 ? site_loop_kernel<T> : site_loop_2f_kernel<T>, cache, args,
+      NFL == 1 ? site_loop_kernel<T> : site_loop_2f_kernel<T>, caches, args,
       dqmc::site_smem_bytes<T>(n, k, NFL, 32), 32, batch, stream);
 }
 
@@ -383,10 +383,10 @@ int launch_sites_sub(T* G, T* mask, long long s_mask, const int* order,
   if (n <= 0 || n > 512 || k <= 0 || k > KMAX || n % k != 0 || batch <= 0 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  static dqmc::SiteLaunchCache cache;
+  static dqmc::SiteLaunchCache caches;
   const dqmc::SiteLoopArgs<T> args{G,  mask,     s_mask,  order, 0, gb, delta,
                                    us, s_stream, nullptr, n,     k, false};
-  return dqmc::launch_site_loop<T>(site_loop_sub_kernel<T>, cache, args,
+  return dqmc::launch_site_loop<T>(site_loop_sub_kernel<T>, caches, args,
                                    dqmc::sub_smem_bytes<T>(n, k),
                                    dqmc::SUB_RMAX, batch, stream);
 }

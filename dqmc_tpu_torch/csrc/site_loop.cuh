@@ -679,11 +679,21 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   }
 }
 
-// What a launcher keeps between launches of one kernel: the device and
-// the dynamic shared memory limit it set, and whether one cluster fits at
-// the last shape it asked about.
-struct SiteLaunchCache {
+// What a launcher keeps between launches of one kernel on one device: the
+// dynamic shared memory limit it set there, and whether one cluster fits
+// at the last shape it asked about.
+struct SiteLaunchEntry {
   int dev = -1, smem = -1, n = -1, k = -1, clusters = 0;
+};
+
+// One entry per device ordinal (modulo SITE_CACHE_DEVICES; an entry that
+// another device took is set again), so that launches alternating between
+// devices from one host thread keep their attribute and occupancy answer.
+constexpr int SITE_CACHE_DEVICES = 16;
+
+struct SiteLaunchCache {
+  SiteLaunchEntry entry[SITE_CACHE_DEVICES];
+  SiteLaunchEntry& of(int dev) { return entry[dev % SITE_CACHE_DEVICES]; }
 };
 
 // Launch `kernel` (a site_loop_body or submatrix_slice_body instantiation
@@ -693,16 +703,18 @@ struct SiteLaunchCache {
 // the kernel's dynamic shared memory limit to what the shape needs and
 // returns cudaErrorLaunchOutOfResources, launching nothing, when the
 // device cannot hold one such cluster (cudaOccupancyMaxActiveClusters).
-// `cache` (one per kernel) keeps the attribute and the answer, so a
-// repeated launch (and a launch under CUDA graph capture) only launches.
+// `caches` (one per kernel) keeps the attribute and the answer per
+// device, so a repeated launch (and a launch under CUDA graph capture)
+// only launches.
 template <typename T, typename Kernel>
-int launch_site_loop(Kernel kernel, SiteLaunchCache& cache,
+int launch_site_loop(Kernel kernel, SiteLaunchCache& caches,
                      const SiteLoopArgs<T>& args, size_t smem, int rmax,
                      int batch, void* stream) {
   const SiteCluster cl = site_cluster(args.n, rmax);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  SiteLaunchEntry& cache = caches.of(dev);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl.C, batch, 1);
   cfg.blockDim = dim3(cl.threads, 1, 1);

@@ -585,9 +585,9 @@ int launch_delayed_slice(T* G, T* acc, const int* order, long long s_order,
     return (int)cudaErrorInvalidValue;
   const dqmc::SiteLoopArgs<T> args{G,  acc, n,   order, s_order, gb, delta,
                                    us, n,   sgn, n,     k,       true};
-  static dqmc::SiteLaunchCache cache;
+  static dqmc::SiteLaunchCache caches;
   return dqmc::launch_site_loop<T>(
-      delayed_slice_kernel<T, NFL>, cache, args,
+      delayed_slice_kernel<T, NFL>, caches, args,
       dqmc::site_smem_bytes<T>(n, k, NFL, 64), 64, batch, stream);
 }
 
@@ -604,12 +604,13 @@ inline int rank1_cluster(int n) {
 }
 
 // One launch of rank1_sites_kernel<T, ONE> (ONE: C = 1) in clusters of
-// L.C CTAs; each instantiation keeps its shared-memory attribute and
-// whether its cluster fits at the last n.
+// L.C CTAs; each instantiation keeps, per device, its shared-memory
+// attribute and whether its cluster fits at the last n.
 template <typename T, bool ONE>
 int launch_rank1(const Rank1Args<T>& args, const Rank1Layout& L, int batch,
                  int dev, void* stream) {
-  static int set_dev = -1, set_smem = -1, fit_n = -1, fit_clusters = 0;
+  static dqmc::SiteLaunchCache caches;
+  dqmc::SiteLaunchEntry& cache = caches.of(dev);
   const auto kernel = rank1_sites_kernel<T, ONE>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(L.C, batch, 1);
@@ -624,23 +625,23 @@ int launch_rank1(const Rank1Args<T>& args, const Rank1Layout& L, int batch,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err;
-  if (dev != set_dev || (int)L.smem > set_smem) {
+  if (dev != cache.dev || (int)L.smem > cache.smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    set_dev = dev;
-    set_smem = (int)L.smem;
-    fit_n = -1;
+    cache.dev = dev;
+    cache.smem = (int)L.smem;
+    cache.n = -1;
   }
-  if (args.n != fit_n) {
-    err = cudaOccupancyMaxActiveClusters(&fit_clusters, kernel, &cfg);
+  if (args.n != cache.n) {
+    err = cudaOccupancyMaxActiveClusters(&cache.clusters, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
-    fit_n = args.n;
+    cache.n = args.n;
   }
-  if (fit_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (cache.clusters < 1) return (int)cudaErrorLaunchOutOfResources;
   err = cudaLaunchKernelEx(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -93,11 +93,16 @@ def _torch_dtype(a: np.ndarray) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, a.dtype)).dtype
 
 
-def make_generators(seed: int, n: int, device) -> List[torch.Generator]:
+def make_generators(seed: int, n: int, device, first: int = 0,
+                    count: int | None = None) -> List[torch.Generator]:
     """n independent generators on ``device``, seeded from one integer via
-    numpy's SeedSequence (independent child streams)."""
+    numpy's SeedSequence (independent child streams); ``first`` and
+    ``count`` keep children [first, first + count) of the n, so that a
+    walker's stream depends only on (seed, its index among the n)."""
     gens = []
-    for child in np.random.SeedSequence(seed).spawn(n):
+    children = np.random.SeedSequence(seed).spawn(n)
+    stop = n if count is None else first + count
+    for child in children[first:stop]:
         g = torch.Generator(device=device)
         g.manual_seed(int(child.generate_state(1, np.uint64)[0]))
         gens.append(g)

@@ -34,6 +34,13 @@ walkers' signs: every observable accumulates sign-weighted (<O s>) and a
 ``sign`` scalar records <s>, so the analysis can reweight <O> = <O s>/<s>.
 Sign-free runs write no ``sign`` and are byte-identical to the reference.
 
+A process whose walkers run in chunks on several devices measures each
+chunk on its own device (:meth:`context` keeps one measurement context
+per device) and closes a bin from the chunks' accumulators joined in
+walker order (:meth:`merge`); with several processes each process's
+manager holds its own walkers, ``rank_offset`` the first one's global
+index.
+
 With a multiword measurement tier (``measure_precision = df32 | tf32``)
 :meth:`measurement_greens` hands the observables the tier's float64 G
 instead of the engine's.  Unequal-time observables (registered only with
@@ -51,7 +58,7 @@ import numpy as np
 import torch
 
 from dqmc_tpu_torch.lattice import Lattice
-from dqmc_tpu_torch.measure.context import make_context
+from dqmc_tpu_torch.measure.context import MeasurementContext, make_context
 from dqmc_tpu_torch.measure.transforms import (r_to_k, site_to_r_all,
                                                site_to_r_batched)
 
@@ -67,6 +74,7 @@ class MeasurementManager:
             raise ValueError(f"[io] sink {sink!r}: h5 or spool")
         self.lat = lat
         self.ctx = make_context(lat, device)
+        self._ctxs = {self.ctx.pair_cols.device: self.ctx}
         self.n_walkers = n_walkers
         self.out_dir = out_dir
         self.measure_unequal = measure_unequal
@@ -150,9 +158,10 @@ class MeasurementManager:
         registered."""
         if not self._uneq_fns:
             return None
-        ctx, fns = self.ctx, dict(self._uneq_fns)
+        fns, context = dict(self._uneq_fns), self.context
 
         def emit(Gtt, Gt0, G0t, G00):
+            ctx = context(Gtt.device)
             return site_to_r_all({name: fn(Gtt, Gt0, G0t, G00, ctx)
                                   for name, fn in fns.items()}, ctx)
         return emit
@@ -167,15 +176,15 @@ class MeasurementManager:
         sweep's largest self-check deviation under ERR_UNEQ.  With
         ``signs`` (W,) every value is multiplied by its walker's sign and
         ("scalar", "sign") holds the signs."""
+        ctx = self.context(G.device)
         out = {} if signs is None else {("scalar", "sign"): signs.clone()}
         s = 1.0 if signs is None else signs
         for name, fn in self._scalar_fns.items():
-            out[("scalar", name)] = fn(G, self.ctx) * s
+            out[("scalar", name)] = fn(G, ctx) * s
         if signs is not None:
             s = signs[:, None, None, None]
         for name, fn in self._eq_fns.items():
-            out[("eq", name)] = site_to_r_batched(fn(G, self.ctx),
-                                                  self.ctx) * s
+            out[("eq", name)] = site_to_r_batched(fn(G, ctx), ctx) * s
         if uneq is not None:
             ys, err = uneq
             if signs is not None:
@@ -184,6 +193,26 @@ class MeasurementManager:
                 out[("uneq", name)] = v * s
             out[ERR_UNEQ] = err.max()
         return out
+
+    def context(self, device) -> MeasurementContext:
+        """The measurement context on ``device`` (one per device that
+        holds walkers)."""
+        device = torch.device(device)
+        if device not in self._ctxs:
+            self._ctxs[device] = make_context(self.lat, device)
+        return self._ctxs[device]
+
+    @staticmethod
+    def merge(accs: list) -> Dict[tuple, torch.Tensor]:
+        """One accumulator of the process's walkers from its chunks'
+        (``parallel/walkers.split_walkers``), on the host in walker order;
+        the self-check deviation keeps its maximum."""
+        if len(accs) == 1:
+            return accs[0]
+        return {key: (torch.stack([a[key].cpu() for a in accs]).amax(0)
+                      if key == ERR_UNEQ else
+                      torch.cat([a[key].cpu() for a in accs]))
+                for key in accs[0]}
 
     @staticmethod
     def accumulate(acc: Dict[tuple, torch.Tensor],

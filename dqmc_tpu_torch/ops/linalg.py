@@ -17,7 +17,9 @@ a well-conditioned R.  Every function takes any leading batch axes.
 Orthogonalization backend for float32: the CGS2 kernel
 (``ops/qr_kernel.py``) on a CUDA tensor, Householder ``torch.linalg.qr``
 anywhere else ("auto"); ``set_f32_orthogonalization`` forces one of them.
-float64 always uses Householder QR.
+float64 always uses Householder QR, on the card one matrix per call
+(:func:`qr`), so that a walker's factors do not depend on the
+batch it runs in.
 """
 
 from __future__ import annotations
@@ -77,7 +79,24 @@ def _qr(A: torch.Tensor):
     if A.dtype == torch.float32 and _f32_mode(A) == "cgs2":
         from dqmc_tpu_torch.ops.qr_kernel import cgs2_qr
         return cgs2_qr(A)
-    return torch.linalg.qr(A)
+    return qr(A)
+
+
+def qr(A: torch.Tensor):
+    """Householder QR, on a CUDA tensor one matrix per call.  torch takes
+    cuBLAS's batched QR from some batch size on (n <= 256) and per-matrix
+    cuSOLVER calls below it, which factor differently (other column
+    signs), so a walker's factors would depend on the batch it runs in,
+    and a run split over devices or processes (each chunk a batch of its
+    own) would part from the unsplit run (``scripts/split_witness.py``).
+    On the CPU, where LAPACK works per matrix anyway, one call."""
+    if A.device.type != "cuda" or A.dim() == 2:
+        return torch.linalg.qr(A)
+    Q, R = zip(*(torch.linalg.qr(a)
+                 for a in A.reshape((-1,) + A.shape[-2:])))
+    batch = A.shape[:-2]
+    return (torch.stack(Q).reshape(batch + Q[0].shape),
+            torch.stack(R).reshape(batch + R[0].shape))
 
 
 def _take_cols(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -135,7 +154,7 @@ def _qr_solve_logdet(A: torch.Tensor, B: torch.Tensor):
     A stable factorization is load-bearing here (gram/Cholesky forms were
     measured to lose the chain)."""
     if A.dtype == torch.float64:
-        Q, R = torch.linalg.qr(A)
+        Q, R = qr(A)
         X = torch.linalg.solve_triangular(R, Q.transpose(-1, -2) @ B,
                                           upper=True)
         logabs = torch.sum(torch.log(torch.abs(
@@ -230,7 +249,7 @@ def inv_triplet_dag(F1: LDR, F2t: LDR):
         X = Wi @ (Q.transpose(-1, -2) @ Y)
         Xt = Q @ (Wi.transpose(-1, -2) @ Y0t)
     else:
-        Q, R = torch.linalg.qr(M)
+        Q, R = qr(M)
         X = torch.linalg.solve_triangular(R, Q.transpose(-1, -2) @ Y,
                                           upper=True)
         Xt = Q @ torch.linalg.solve_triangular(R.transpose(-1, -2), Y0t,

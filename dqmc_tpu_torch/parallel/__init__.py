@@ -1,2 +1,4 @@
-"""Parallel tempering on one device: replica-stacked models
-(``walkers.py``) and the replica-exchange driver (``tempering.py``)."""
+"""Walkers across devices and processes, and parallel tempering:
+walker chunks and replica-stacked models (``walkers.py``), the process
+group and its collectives (``distributed.py``), and the replica-exchange
+driver (``tempering.py``)."""

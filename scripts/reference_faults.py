@@ -6,6 +6,7 @@ measured on the CPU with the JAX package itself.
     python3 scripts/reference_faults.py checkerboard   # ~1 minute
     python3 scripts/reference_faults.py bins           # ~1 minute
     python3 scripts/reference_faults.py tempering      # ~2 minutes
+    python3 scripts/reference_faults.py distributed    # ~1 minute
 
 ``checkerboard`` (6x6, beta = 2, nt = 16, n_stab = 4, U = 4, mu = -0.1,
 float64 unless named; on a 4x4 torus the four bond groups commute and
@@ -37,6 +38,15 @@ attempt's key: where the resumed run's attempts draw their coins, how
 many attempts each run makes, whether any checkpoint is taken during the
 thermalization, and whether the resumed chain ends where the straight one
 does.
+
+``distributed`` runs the JAX package's driver in two processes on the
+CPU (jax.distributed over 127.0.0.1, [distributed] num_processes = 2,
+n_walkers = 8, 4x4, 2 bins, both processes writing into one directory):
+each process's exit code and last error line, and the bin files in the
+directory, against the 8 files data_0 .. data_7 a run of 8 walkers owns
+(run.py:343-349 hands the manager the global n_walkers with a
+per-process rank_offset; run.py:582 fetches accumulators that span the
+other process's devices).
 """
 
 from __future__ import annotations
@@ -351,9 +361,61 @@ def tempering() -> None:
           f"{resumed[0].exchange_rate:.4f}", flush=True)
 
 
+DIST = r'''
+import sys
+sys.path.insert(0, sys.argv[3])
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+from dqmc_tpu.config import Parameters
+from dqmc_tpu.run import run_simulation
+params = Parameters.from_string(open(sys.argv[1]).read())
+params.set("distributed", "process_id", sys.argv[2])
+run_simulation(params, out_dir=sys.argv[4], verbose=False)
+'''
+
+
+def distributed() -> None:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    text = BINS_PARAMS.format(every=0, sink="h5").replace(
+        "n_bins = 4", "n_bins = 2") + (
+        f"[walkers]\nn_walkers = 8\n[distributed]\nnum_processes = 2\n"
+        f"coordinator_address = 127.0.0.1:{port}\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        pfile = Path(tmp) / "parameters.in"
+        pfile.write_text(text)
+        out = Path(tmp) / "results"
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST, str(pfile), str(r), str(REPO),
+             str(out)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                _, err = p.communicate()
+            last = [x for x in err.strip().splitlines() if x.strip()]
+            where = [x.strip() for x in last if "dqmc_tpu/" in x
+                     and x.strip().startswith("File")]
+            print(f"reference_faults distributed: process {r} exit code "
+                  f"{p.returncode}, last error line: "
+                  f"{last[-1] if last else '(none)'}; raised under "
+                  f"{where[-1] if where else '(no frame of dqmc_tpu)'}",
+                  flush=True)
+        files = sorted(f.name for f in out.glob("data_*")) \
+            if out.exists() else []
+        print(f"reference_faults distributed: bin files {files} (a run of "
+              f"8 walkers owns data_0 .. data_7)", flush=True)
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
-    if mode not in ("checkerboard", "bins", "tempering"):
+    if mode not in ("checkerboard", "bins", "tempering", "distributed"):
         sys.exit(__doc__)
-    {"checkerboard": checkerboard, "bins": bins,
-     "tempering": tempering}[mode]()
+    {"checkerboard": checkerboard, "bins": bins, "tempering": tempering,
+     "distributed": distributed}[mode]()

@@ -60,11 +60,8 @@ n_stab = 4
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("walkers", "n_devices", "2"),
     ("simulation", "wrap_precision", "default"),
     ("simulation", "matmul_precision", "default"),
-    ("simulation", "profile_dir", "trace"),
-    ("distributed", "coordinator_address", "localhost:1234"),
 ])
 def test_unported_configuration_raises(tmp_path, section, key, value):
     from dqmc_tpu_torch.run import run_simulation
