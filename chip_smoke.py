@@ -50,7 +50,8 @@ non-zero):
    beside torch.baddbmm in device time), and #6 at (W=4, ns=36), (16, 256)
    and (4, 1024) in both float types in device time, each beside its
    bound and the parent's time;
-7. the stretch configuration (32x32, beta=16, nt=320, n_stab=5, U=4, W=4,
+7. the stretch configuration (32x32, beta=16, nt=160 -- bench.py's 320
+   cut to half -- n_stab=5, U=4, W=4,
    float32) through run_simulation, with the default site update (#3),
    with site_update = submatrix (#5) and with site_update = scan (#6), one
    pair each, then one more scan pair under torch.profiler (device busy
@@ -80,8 +81,8 @@ non-zero):
     float32) through run_simulation with engine = auto (fused: #2b + K1)
     and engine = slice (#4 + K1): every walker's sign must stay +1; then a
     doped run (U=6, mu=-0.8) in float32 and in float64 (#2b f64, its
-    steady self-check < 1e-6), printing the mean sign, density and
-    doubleOcc of both;
+    steady self-check < 1e-6; 4 + 2x4 pairs, the float32 run's 10 + 5x4),
+    printing the mean sign, density and doubleOcc of both;
 12. the headline shape with model = repulsive, three timed sweep pairs on
     the fused engine, then one more pair under torch.profiler;
 13. examples/basic with fused_update = submatrix (#2c) on the fused engine,
@@ -128,7 +129,7 @@ non-zero):
     phase 15 did not run), the tau sweep on the walkers' float32 view
     against float64 (as in (b), <= 5e-2 of max|G|);
 18. checkerboard kinetics on the per-slice engine: bench.py's stretch_cb
-    (32x32, beta=16, nt=320, n_stab=5, W=4, float32) for one pair through
+    (32x32, beta=16, nt=160 as phase 7's, n_stab=5, W=4, float32) for one pair through
     run_simulation (#3 + K1, finite), its rate beside phase 7's dense
     stretch, one more pair under torch.profiler; the headline's float64
     checkerboard B products on the card against the dense operator
@@ -168,14 +169,35 @@ non-zero):
     [cuda:0, cuda:0] traced into profile_dir, whose Chrome trace must
     name the fused kernels; the two processes' summed rate against one
     process's, printed.
+21. the per-slice engine past the 32x32 lattice: (a) K1 in float32 at
+    (2, n) for n = 1156 (padded to 1184), 1600 and its cap 1728, to phase
+    2's tolerances, the same bits on a second call and for each matrix
+    alone, then timed at (4, 1600) beside its twin and torch.linalg.qr;
+    #3 and #6 with one flavor and #4 with two on 34x34 (ns = 1156), 40x40
+    and 32x64 (ns = 2048, the cap), W = 2, in float64 and float32 (#3
+    and #4 in one shared order at rank 32, #6 in per-walker orders): float64
+    decisions and signs identical and G within 1e-9 of max|G|, float32
+    decisions <= 1% apart, the same bits on a second call and for each
+    walker alone; each timed at (4, 1600, 32) in float32, device time; (b)
+    the 40x40 configuration (U=4, mu=0, beta=4, nt=80, n_stab=5, W=4,
+    float32, engine = auto: per slice, site_update = pallas, the default
+    measurements, sink = spool) through run_simulation for 1 + 2x1 pairs,
+    one more pair under torch.profiler (device busy by family: K1, #3,
+    the GEMMs), then in float64 at W = 2 (0 + 1x1) and in float32 with
+    site_update = scan (#6, 0 + 1x1): the kernels launched, acceptance in
+    (0, 1), finite observables, the spool logs holding every bin; float64:
+    the steady self-check <= 1e-6; float32: each walker's final G within
+    5e-2 of its max|G| of the float64 chain's on the same fields, the
+    steady self-check printed beside its err_warn of 1e-2 (this float32
+    configuration reads 1e-2 to 1e-1 there, scripts/wide_selfcheck.py).
 
 The phases run in the order 2-3, 5-10, 12-14, then phase 16 in a spawned
 process of its own (its launch counts come back to this one) while phases
 4, 11 and 15 run here (those four are host-bound, so their rates and
-phase 15's profile are taken beside one another), then 17, 18, 19 and
-20, alone; every
-kernel time of the kernels line is taken in phases 2-14, alone.  Every phase that drives a
-main path (4, 5, 7, 8, 11, 12, 13, 15-20) sets the launch counters to 0
+phase 15's profile are taken beside one another), then 17, 18, 19, 20
+and 21, alone; every
+kernel time of the kernels line is taken in phases 2-14 and 21, alone.  Every phase that drives a
+main path (4, 5, 7, 8, 11, 12, 13, 15-21) sets the launch counters to 0
 just before and reads them just after; the tau runs also count the
 launches made inside their tau sweeps.  The line
 before the last is one JSON object describing every kernel; the last line
@@ -446,7 +468,7 @@ def phase_qr(torch, gen, report):
         k1_stage_split(torch, qk, A)
 
 
-def qr_quality(torch, qk, A):
+def qr_quality(torch, qk, A, phase="phase 2"):
     """K1's float32 factorization of graded A against
     tests/test_qr_kernel.py's thresholds."""
     B, n, _ = A.shape
@@ -457,7 +479,7 @@ def qr_quality(torch, qk, A):
     recon = float((Q64 @ R64 - A.double()).abs().max())
     low = float(torch.tril(R64, -1).abs().max())
     dmin = float(torch.diagonal(R64, dim1=-2, dim2=-1).min())
-    say(f"phase 2: K1 f32 ({B}, {n}, {n}) graded: orth {orth:.3e} (< 2e-4) "
+    say(f"{phase}: K1 f32 ({B}, {n}, {n}) graded: orth {orth:.3e} (< 2e-4) "
         f"recon {recon:.3e} (< 5e-6) tril {low:.1e} min diag {dmin:.3e}")
     if not (orth < 2e-4 and recon < 5e-6 and low == 0.0 and dmin >= 0.0):
         fail(f"K1 f32 factorization quality at n = {n}")
@@ -942,8 +964,9 @@ def check_site_budget(tk):
     (ops/kernels.py slice_cluster, delayed_slice_smem) against the
     library's (dqmc_site_cluster, dqmc_site_smem_bytes) at every shape the
     two engines give it: the fused loop (R <= 32, ns <= 512) and the
-    delayed slice (R <= 64, ns <= 1024), k <= 32, one or two flavors,
-    float32 or float64; the submatrix loop's (submatrix_slice_smem against
+    delayed slice (R <= 64, ns <= 1024, then 16 CTAs of R <= 128 to ns =
+    MAX_SITES, the lean layout where the full one does not fit), k <= 32,
+    one or two flavors, float32 or float64; the submatrix loop's (submatrix_slice_smem against
     dqmc_sub_smem_bytes, ns <= 512) and #5's CTAs per walker
     (submatrix_group_ctas against dqmc_submatrix_group_ctas, ns <= 4096)."""
     from dqmc_tpu_torch import _cuda
@@ -1248,6 +1271,9 @@ def run_params(torch, text: str, label: str, need, phase: str,
 # phase 7's dense stretch rate with #3, printed beside phase 18's stretch_cb
 STRETCH_RATE = {}
 
+# bench.py's stretch (32x32, beta=16, nt=320, n_stab=5, W=4) at half its
+# depth: nt = 160 (dtau 0.1), which halves phases 7, 9 and 18's stretch
+# pairs; the widths, beta and the kernels' shapes are the preset's
 STRETCH = """
 [Lattice]
 L1 = 32
@@ -1258,7 +1284,7 @@ t = 1.0
 mu = 0.0
 [simulation]
 beta = 16.0
-nt = 320
+nt = 160
 n_stab = 5
 n_therms = 0
 n_bins = 1
@@ -1277,7 +1303,7 @@ def phase_stretch(torch):
     scan pair profiled); K1 stabilizes all three."""
     site = ("delayed_slice",)
     sub = ("submatrix_group", "submatrix_flush")
-    summary = run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=320 "
+    summary = run_params(torch, STRETCH, "stretch 32x32 beta=16 nt=160 "
                          "n_stab=5 W=4 f32, engine = auto (per slice, "
                          "site_update = pallas: #3), 0 + 1 pairs",
                          ("cgs2_qr",) + site, "phase 7")
@@ -1328,20 +1354,20 @@ def phase_basic_slice(torch):
     """examples/basic through the per-slice engine: the rank-1 scan (#6)
     and the per-walker delayed scheme (#3 at delay_rank = 32, a short last
     block of 4 at ns = 36).  n_stab cut from 10 to 5 (the f32 self-check
-    at 10 is O(1e2), PERF.md); 20 + 2 x 10 pairs."""
+    at 10 is O(1e2), PERF.md); 10 + 2 x 5 pairs."""
     text = (REPO / "examples" / "basic" / "parameters.in").read_text()
-    cut = ("[simulation]\nengine = slice\nn_therms = 20\nn_bins = 2\n"
-           "n_sweeps = 10\nn_stab = 5\ndtype = float32\n")
+    cut = ("[simulation]\nengine = slice\nn_therms = 10\nn_bins = 2\n"
+           "n_sweeps = 5\nn_stab = 5\ndtype = float32\n")
     run_params(torch, text + cut + "site_update = scan\n",
                "examples/basic, engine = slice, site_update = scan (#6), "
-               "n_stab=5, 20 + 2x10 pairs", ("rank1_sites", "cgs2_qr"),
+               "n_stab=5, 10 + 2x5 pairs", ("rank1_sites", "cgs2_qr"),
                "phase 8")
     profile_params(torch, text + cut + "site_update = scan\n",
                    "examples/basic, site_update = scan (#6)", 2, 5,
                    "phase 8")
     run_params(torch, text + cut + "site_update = delayed\n",
                "examples/basic, engine = slice, site_update = delayed "
-               "(#3, per-walker order, k=32), n_stab=5, 20 + 2x10 pairs",
+               "(#3, per-walker order, k=32), n_stab=5, 10 + 2x5 pairs",
                ("delayed_slice", "cgs2_qr"), "phase 8")
 
 
@@ -2011,14 +2037,18 @@ def phase_repulsive(torch):
     doped = (REPULSIVE + "[hubbard]\nU = 6.0\nmu = -0.8\n[simulation]\n"
              "n_therms = 10\nn_bins = 5\nn_sweeps = 4\n")
     seen = {}
-    # (the float64 engine factors with torch's Householder QR, not K1)
-    for dtype, engine, need in (("float32", "auto", fused_need),
-                                ("float64", "fused", fused_need[1:])):
+    # (the float64 engine factors with torch's Householder QR, not K1;
+    # its run is cut to 4 + 2x4 pairs: ~60 s at 10 + 5x4)
+    for dtype, engine, need, depth in (
+            ("float32", "auto", fused_need, ""),
+            ("float64", "fused", fused_need[1:],
+             "n_therms = 4\nn_bins = 2\n")):
         summary = run_params(
-            torch, doped + f"dtype = {dtype}\nengine = {engine}\n",
+            torch, doped + f"dtype = {dtype}\nengine = {engine}\n{depth}",
             f"repulsive doped U=6 mu=-0.8 {dtype}, engine = {engine} "
-            f"(fused: #2b{' + K1' if need == fused_need else ''}), 10 + "
-            f"5x4 pairs", need, "phase 11")
+            f"(fused: #2b{' + K1' if need == fused_need else ''}), "
+            + ("4 + 2x4" if depth else "10 + 5x4") + " pairs", need,
+            "phase 11")
         signs = summary.walker_signs
         if not set(signs) <= {1.0, -1.0}:
             fail(f"doped run: a walker's sign is not +-1: "
@@ -3258,7 +3288,7 @@ def phase_checkerboard(torch):
     nt=160, W=16) with checkerboard in float64 on the per-slice engine
     (#3), one pair, its self-check < 1e-6."""
     text = STRETCH + "[hubbard]\ncheckerboard = true\n"
-    summary = run_params(torch, text, "stretch_cb 32x32 beta=16 nt=320 "
+    summary = run_params(torch, text, "stretch_cb 32x32 beta=16 nt=160 "
                          "n_stab=5 W=4 f32, checkerboard, engine = auto "
                          "(per slice, site_update = pallas: #3), 0 + 1 "
                          "pairs", ("cgs2_qr", "delayed_slice"), "phase 18")
@@ -3947,6 +3977,374 @@ def phase_split(torch, card):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# phase 21: the per-slice engine past the 32x32 lattice.  The site loops'
+# shapes (L1, L2): 34x34 (ns = 1156, not a multiple of 32), 40x40 and
+# 32x64, the kernels' cap (ops/kernels.py MAX_SITES = 2048); K1's float32
+# sizes: 1156 (padded to 1184), 1600 and its cap, 1728
+WIDE_LATTICES = ((34, 34), (40, 40), (32, 64))
+WIDE_QR = (1156, 1600, 1728)
+WIDE_W = 2
+WIDE_NS = 1600  # the 40x40 run's, at which the kernels are timed
+# the 40x40 configuration of (b): attractive, U = 4, mu = 0, beta = 4,
+# nt = 80, n_stab = 5, W = 4, float32, the per-slice engine (ns > 512)
+# with site_update = pallas (#3), density, doubleOcc, swave and
+# densityCorr (the defaults), into spool logs; 1 + 2x1 pairs
+WIDE = """
+[Lattice]
+L1 = 40
+L2 = 40
+[hubbard]
+U = 4.0
+t = 1.0
+mu = 0.0
+[simulation]
+beta = 4.0
+nt = 80
+n_stab = 5
+n_therms = 1
+n_bins = 2
+n_sweeps = 1
+dtype = float32
+seed = 42
+[walkers]
+n_walkers = 4
+[io]
+sink = spool
+"""
+NEED_WIDE = ("cgs2_qr", "delayed_slice")
+
+
+def wide_inputs(torch, gen, L1, L2, flavors):
+    """One slice's inputs on an L1 x L2 lattice at the stretch's dtau =
+    0.05 (beta = 1, nt = 20): G (W, 1 or 2, ns, ns) of fresh walkers built
+    in float64 (K1 does not take float32 past ns = 1728; float32 cases take
+    it rounded), the slice-start fields, per-walker visit orders, proposal
+    draws and uniforms (float64), and per-walker couplings (g, alpha)."""
+    from dqmc_tpu_torch.engine.state import EngineConfig, make_generators
+    from dqmc_tpu_torch.engine.sweep import init_state
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import AttractiveHubbard, RepulsiveHubbard
+    W = WIDE_W
+    cls = AttractiveHubbard if flavors == 1 else RepulsiveHubbard
+    model = cls.build(square_lattice(L1, L2), U=4.0, t=1.0, mu=0.0,
+                      beta=1.0, nt=20, dtype=torch.float64, device="cuda")
+    states = init_state(model, EngineConfig(nt=20, n_stab=5),
+                        make_generators(5, W, "cuda"))
+    ns = model.n_sites
+    orders = torch.argsort(torch.rand((W, ns), generator=gen, device="cuda"),
+                           dim=-1)
+    props = torch.randint(0, 3, (W, ns), generator=gen, device="cuda")
+    us = torch.rand((W, ns), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    scale = 1.0 + 0.05 * torch.linspace(-1.0, 1.0, W, device="cuda",
+                                        dtype=torch.float64)
+    return (model.g * scale, model.alpha.expand(W), orders, props, us,
+            states.G, states.fields[:, 0])
+
+
+def hold_wide(torch, tag, fn, args, kw, dtype):
+    """A site-update wrapper's kernel against its twin on one slice:
+    float64 decisions (and signs) identical and G within 1e-9 of max|G|,
+    float32 decisions <= 1% apart; the same bits on a second call; each
+    walker's bits alone (W = 1) as in the batch.  Returns |dG| max."""
+    out = fn(*args, **kw)
+    again = fn(*args, **kw)
+    want = fn(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    W = args[0].shape[0]
+
+    def one(w):
+        return tuple(x if i == 2 and x.dim() == 1 else x[w:w + 1]
+                     for i, x in enumerate(args))
+    alone = all(same_bits(fn(*one(w), **kw), tuple(x[w:w + 1] for x in out))
+                for w in range(W))
+    same = same_bits(out, again)
+    Gk, fk, ak = out[:3]
+    Gp, fp, ap = want[:3]
+    ns = Gp.shape[-1]
+    mism = int((fk != fp).sum())
+    signs = int((out[3] != want[3]).sum()) if len(out) > 3 else 0
+    dacc = int(((ak - ap).abs() * ns).round().sum())
+    gap = float((Gk - Gp).abs().max())
+    rel = gap / float(Gp.abs().max())
+    accepted = int((ap * ns).round().sum())
+    line = (f"phase 21: {tag}: {accepted} of {fk.numel()} accepted, "
+            f"mismatched decisions {mism}, signs {signs}, |dG|/max|G| "
+            f"{rel:.3e}; two calls bit-equal: {same}; each walker alone "
+            f"bit-equal: {alone}")
+    if dtype == torch.float64:
+        say(line + " (f64: decisions identical, < 1e-9)")
+        if mism or signs or dacc or not rel < 1e-9:
+            fail(f"phase 21: {tag} disagrees with its twin (f64)")
+    else:
+        say(line + " (f32: <= 1% of the decisions)")
+        if mism > 0.01 * fk.numel():
+            fail(f"phase 21: {tag} f32 decisions disagree with the twin")
+    if not 0 < accepted < fk.numel():
+        fail(f"phase 21: {tag}: the twin needs acceptances and rejections")
+    if not (same and alone):
+        fail(f"phase 21: {tag}: other bits on a second call or alone")
+    return gap
+
+
+def wide_sites(torch, gen, report):
+    """(a) #3 and #6 with one flavor and #4 with two, one slice each at
+    WIDE_LATTICES in both float types (#3 and #4 in one shared order at
+    rank 32, a short last group at ns = 1156; #6 in per-walker orders),
+    held to hold_wide's contracts; then #3, #4 and #6 timed alone at the
+    40x40 run's (4, 1600, 32) in float32, in device time, beside the twin
+    and the bound, kept under each entry's ``shapes``."""
+    from dqmc_tpu_torch.ops import kernels as tk
+    gaps, timing = {}, {}
+    cases = (("#3", tk.metropolis_slice_update_batched, 1, True),
+             ("#6", tk.metropolis_slice_update, 1, False),
+             ("#4", tk.metropolis_slice_update_batched_2f, 2, True))
+    for L1, L2 in WIDE_LATTICES:
+        ns = L1 * L2
+        for flavors in (1, 2):
+            base = wide_inputs(torch, gen, L1, L2, flavors)
+            for label, fn, nfl, shared in cases:
+                if nfl != flavors:
+                    continue
+                kw = dict(k_delay=32, exact_rank=True) if shared else {}
+                for dtype in (torch.float64, torch.float32):
+                    g, alpha, orders, props, us, G, fields = base
+                    args = (g.to(dtype), alpha.to(dtype),
+                            orders[0] if shared else orders, props,
+                            us.to(dtype), G.to(dtype), fields)
+                    tag = (f"{label} {str(dtype)[6:]} W={WIDE_W} ns={ns} "
+                           + ("k=32 shared order" if shared
+                              else "per-walker orders"))
+                    gap = hold_wide(torch, tag, fn, args, kw, dtype)
+                    if ns == WIDE_NS:
+                        if dtype == torch.float64:
+                            gaps[label] = gap
+                        else:
+                            timing[label] = args
+    # the times at the 40x40 run's shape: W = 4 (each walker's cluster on
+    # its own SMs), the two walkers' inputs twice
+    K, P = tk.KERNELS, tk.PLAIN
+    W, n, k = 4, WIDE_NS, 32
+    for label, name, nfl in (("#3", "delayed_slice", 1),
+                             ("#4", "delayed_slice_2f", 2),
+                             ("#6", "rank1_sites", 1)):
+        g, alpha, order, props, us, G, fields = (
+            x if i == 2 and x.dim() == 1 else torch.cat([x, x])
+            for i, x in enumerate(timing[label]))
+        order = order.to(torch.int32).contiguous()
+        dt = G.dtype
+        _, gb, delta = tk.visit_factors(g, alpha, fields,
+                                        order.long().expand(W, n), props,
+                                        dt, nfl)
+        gb, delta = gb.contiguous(), delta.contiguous()
+        G = (G[:, 0] if nfl == 1 else G).contiguous()
+        acc = torch.empty((W, n), dtype=dt, device="cuda")
+        sgn = torch.ones((W,), dtype=dt, device="cuda")
+        if name == "rank1_sites":
+            kern = lambda: K.rank1(G.clone(), acc, order, gb, delta, us)
+            plain = lambda: P.rank1(G.clone(), acc.clone(), order, gb,
+                                    delta, us)
+            K.rank1(G.clone(), acc, order, gb, delta, us)
+            ops, nbytes = 2 * n * n * int(acc.sum()), 4 * W * (2 * n * n
+                                                               + 5 * n)
+        else:
+            sl = (acc, order, gb, delta, us, k, sgn)
+            Gt = G.clone()
+            kern = lambda: K.delayed_slice(Gt, *sl)
+            plain = lambda: P.delayed_slice(G.clone(), acc.clone(),
+                                            *sl[1:-1], sgn.clone())
+            ops, nbytes = slice_bound(W, n, k, nfl)
+        ms = device_ms(kern, 2)
+        plain_ms = cuda_ms(plain, 1)
+        record(report, name, max_abs_err=gaps[label], ms=ms,
+               plain_ms=plain_ms, ops=ops, nbytes=nbytes,
+               shape=(W, n, "float32") if name == "rank1_sites"
+               else (W, n, k, "float32"), main=False)
+        r = report[name]["shapes"][-1]
+        say(f"phase 21: {name} ({label}) f32 W={W} ns={n}, one slice: "
+            f"kernel {ms:.4f} ms (device time), plain {plain_ms:.3f} ms, "
+            f"no single library call, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+
+def wide_qr(torch, gen, report):
+    """(a) K1 in float32 at (2, n) for n in WIDE_QR to phase 2's
+    tolerances (tests/test_qr_kernel.py's quality thresholds, |d(Q,R)| <
+    1e-3 against the twin), the same bits on a second call and for each
+    matrix alone; then timed at the 40x40 run's (4, 1600) beside the twin,
+    torch.linalg.qr and the bound."""
+    from dqmc_tpu_torch.ops import qr_kernel as qk
+    for n in WIDE_QR:
+        A = graded(gen, WIDE_W, n, torch.float32)
+        qr_quality(torch, qk, A, "phase 21")
+        got = qk.cgs2_qr_inv(A)
+        again = qk.cgs2_qr_inv(A)
+        want = qk.padded_qr(A, True, qk.cgs2_qr_plain)
+        alone = all(same_bits(qk.cgs2_qr_inv(A[w:w + 1]),
+                              tuple(x[w:w + 1] for x in got))
+                    for w in range(WIDE_W))
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        same = same_bits(got, again)
+        say(f"phase 21: K1 f32 ({WIDE_W}, {n}, {n}) |d(Q,R)| vs twin "
+            f"{err:.3e} (< 1e-3); two calls bit-equal: {same}; each matrix "
+            f"alone bit-equal: {alone}")
+        if not (err < 1e-3 and same and alone):
+            fail(f"phase 21: K1 f32 at ({WIDE_W}, {n}) against its twin, "
+                 f"a second call or a matrix alone")
+    B, n = 4, WIDE_NS
+    A = graded(gen, B, n, torch.float32)
+    want = qk.padded_qr(A, True, qk.cgs2_qr_plain)
+    got = qk.cgs2_qr_inv(A)
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    ms = cuda_ms(lambda: qk.cgs2_qr_inv(A), 5)
+    plain_ms = cuda_ms(lambda: qk.padded_qr(A, True, qk.cgs2_qr_plain), 1)
+    lib_ms = cuda_ms(lambda: torch.linalg.qr(A), 5)
+    record(report, "cgs2_qr", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+           ops=(4 + 1 / 3) * n ** 3 * B, nbytes=4 * B * n * n * 4,
+           library_ms=lib_ms, shape=(B, n, n), main=False)
+    r = report["cgs2_qr"]["shapes"][-1]
+    say(f"phase 21: K1 f32 ({B}, {n}, {n}): kernel {ms:.3f} ms per "
+        f"cgs2_qr_inv, twin {plain_ms:.3f} ms, torch.linalg.qr "
+        f"{lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# the device split of a 40x40 pair: kernel-name substrings by family
+WIDE_FAMILIES = (("K1", tuple(key for key, _ in K1_STAGES[:5])),
+                 ("#3 delayed_slice", ("delayed_slice_kernel",)),
+                 ("#6 rank1_sites", ("rank1_sites_kernel",)),
+                 ("GEMMs (the wraps and folds)", ("gemm", "Gemm", "GEMM")))
+
+
+def wide_pair_split(torch, summary, report):
+    """One more float32 pallas pair from the run's final walkers under
+    torch.profiler (device activity alone): device busy by family (K1,
+    #3, the torch GEMMs, the rest) and launches per pair, which go into
+    the kernels line's 40x40 shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    from dqmc_tpu_torch.engine.sweep import sweep_pair
+    from dqmc_tpu_torch.lattice import square_lattice
+    from dqmc_tpu_torch.models import MODEL_REGISTRY
+    from dqmc_tpu_torch.run import make_engine_config
+    dev = torch.device("cuda")
+    params = Parameters.from_string(WIDE)
+    model = MODEL_REGISTRY["attractive"].from_params(
+        params, square_lattice(40, 40), dtype=torch.float32, device=dev)
+    cfg = make_engine_config(params, dev, 5)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep_pair(model, cfg, summary.states)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    rows = device_rows(prof)
+    busy = sum(e.us for e in rows) / 1e6
+    fam = Counter()
+    for e in rows:
+        name = next((f for f, keys in WIDE_FAMILIES
+                     if any(key in e.key for key in keys)), "the rest")
+        fam[name] += e.us / 1e6
+    say(f"phase 21: 40x40 f32 pallas, one profiled sweep pair: wall "
+        f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1.0 - busy / wall:.4f}; launches per pair {launches}")
+    for name, s in fam.most_common():
+        say(f"phase 21:   {name:30s} {s:8.3f} s ({s / busy:6.1%})")
+    for name in ("cgs2_qr", "delayed_slice"):
+        for r in report.get(name, {}).get("shapes", []):
+            if r["shape"][:2] == [4, WIDE_NS]:
+                r["launches_per_40x40_pair"] = launches.get(name, 0)
+
+
+def wide_runs(torch, report):
+    """(b) the 40x40 configuration through run_simulation: float32 with
+    site_update = pallas (#3 + K1) into spool logs, 1 + 2x1 pairs, one
+    profiled pair after it; float64 at W = 2 (#3; Householder QR), 0 +
+    1x1; float32 with site_update = scan (#6 + K1), 0 + 1x1.  Each:
+    the kernels launched, acceptance in (0, 1), finite observables, the
+    spool logs holding every bin; float64: the steady self-check <= its
+    err_warn, 1e-6.  float32: each walker's final G within TAU_F32_REL of
+    its max|G| of the float64 chain's G on the same fields (n_stab = 1);
+    its steady self-check is printed beside err_warn (1e-2), not gated:
+    this float32 configuration reads 1e-2 to 1e-1 there with K1 or
+    Householder, #3 or #6, n_stab 1 to 5, and after 1 to 40
+    thermalization pairs (scripts/wide_selfcheck.py), as the JAX
+    package's float32 headline reads 10.8 on the TPU (BENCH_r05.json)."""
+    from dqmc_tpu_torch import _cuda
+    from dqmc_tpu_torch.config import Parameters
+    out = Path(tempfile.mkdtemp(prefix="phase21_"))
+    try:
+        f64 = ("[simulation]\ndtype = float64\nn_therms = 0\nn_bins = 1\n"
+               "[walkers]\nn_walkers = 2\n")
+        scan = ("[simulation]\nsite_update = scan\nn_therms = 0\n"
+                "n_bins = 1\n")
+        for text, label, need, W, bins, warn, tag in (
+                (WIDE, "40x40 beta=4 nt=80 n_stab=5 W=4 f32, engine = auto "
+                 "(per slice), site_update = pallas (#3), sink = spool, 1 + "
+                 "2x1 pairs", NEED_WIDE, 4, 2, 1e-2, "f32"),
+                (WIDE + f64, "the same in float64 at W=2 (#3, Householder "
+                 "QR), 0 + 1x1 pairs", ("delayed_slice",), 2, 1, 1e-6,
+                 "f64"),
+                (WIDE + scan, "the same in float32 with site_update = scan "
+                 "(#6), 0 + 1x1 pairs", ("cgs2_qr", "rank1_sites"), 4, 1,
+                 1e-2, "scan")):
+            summary = run_params(torch, text, label, need, "phase 21",
+                                 out_dir=out / tag)
+            per_pair = {k: v / (bins + (tag == "f32"))
+                        for k, v in _cuda.LAUNCHES.items() if v}
+            err = summary.max_precision_error
+            if tag == "f64":
+                say(f"phase 21: {tag}: steady self-check max {err:.3e} (<= "
+                    f"{warn:.0e})")
+                if not err <= warn:
+                    fail(f"phase 21: {tag}: steady self-check {err:.3e} "
+                         f"above err_warn {warn:.0e}")
+            else:
+                params = Parameters.from_string(text)
+                G64, _ = _f64_rebuild(torch, params, summary.states.fields)
+                G32 = summary.states.G.double()
+                rel = ((G32 - G64).abs().amax(dim=(1, 2, 3))
+                       / G64.abs().amax(dim=(1, 2, 3)))
+                say(f"phase 21: {tag}: steady self-check max {err:.3e} "
+                    f"(err_warn {warn:.0e}: printed, not gated); per walker "
+                    f"max|G_f32 - G_f64| / max|G_f64| of the final fields "
+                    + ", ".join(f"{x:.3e}" for x in rel.tolist())
+                    + f" (<= {TAU_F32_REL:.0e})")
+                if not bool((rel <= TAU_F32_REL).all()):
+                    fail(f"phase 21: {tag}: the float32 G is farther from "
+                         f"the float64 chain's than {TAU_F32_REL}")
+            hold_logs(Parameters.from_string(text), out / tag, W, bins,
+                      phase="phase 21")
+            say(f"phase 21: {tag}: launches per sweep pair (the first "
+                f"Green's function's K1 calls included) {per_pair}")
+            if tag == "f32":
+                wide_pair_split(torch, summary, report)
+            for r in report.get("rank1_sites", {}).get("shapes", []):
+                if tag == "scan" and r["shape"][:2] == [4, WIDE_NS]:
+                    r["launches_per_40x40_pair"] = per_pair.get(
+                        "rank1_sites", 0)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_wide(torch, report):
+    """Phase 21: K1, #3, #4 and #6 past the 32x32 lattice, parts (a) and
+    (b) as the module docstring lists them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    for part, fn in (("a, K1", lambda: wide_qr(torch, gen, report)),
+                     ("a, site loops", lambda: wide_sites(torch, gen,
+                                                          report)),
+                     ("b", lambda: wide_runs(torch, report))):
+        t0 = time.perf_counter()
+        fn()
+        say(f"phase 21 ({part}) took {time.perf_counter() - t0:.1f} s")
+
+
 def print_registers() -> None:
     """ptxas's registers and spill bytes of every kernel instantiation,
     from one ``nvcc -Xptxas -v`` per source with the build's flags."""
@@ -4001,7 +4399,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                     "dqmc_tpu/ops/tf_qr_kernel.py:115"),
 }
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19, 20)
+          19, 20, 21)
 # the phases that run, in this order after phase 14, while phase 16 runs
 # in a process of its own: phase 16 is host-bound (~220 s of launches), as
 # are these, and none of them profiles the card but phase 15's two blocks
@@ -4116,7 +4514,8 @@ def main(argv=None) -> None:
              (17, lambda: phase_tau(torch)),
              (18, lambda: phase_checkerboard(torch)),
              (19, lambda: phase_tempering(torch)),
-             (20, lambda: phase_split(torch, card)))
+             (20, lambda: phase_split(torch, card)),
+             (21, lambda: phase_wide(torch, report)))
     side = None
     for phase, run in steps:
         if phase not in phases:

@@ -4,9 +4,10 @@
 // behind cgs2_qr / cgs2_qr_inv), which every LDR fold (to_ldr) and every
 // stabilized solve and log-det (_qr_solve_logdet) of the main path runs.
 //
-// What it computes, per matrix A (n x n, n a multiple of 32; n <= 1024 in
-// float32, n <= 512 in float64, where the 32-row panel still fits in shared
-// memory):
+// What it computes, per matrix A (n x n, n a multiple of 32; n <= 1728 in
+// float32, where the 32-row panel still fits in a block's 232,448 bytes of
+// shared memory, and n <= 512 in float64, which the engines factor by
+// Householder):
 // classical Gram-Schmidt with reorthogonalization (CGS2) on the columns of
 // A, in 32-column panels.  Every column receives two complete projection
 // passes against all earlier columns: two block passes against the finished
@@ -469,7 +470,8 @@ cross_kernel(T* __restrict__ rinv, const T* __restrict__ work, int n,
 template <typename T>
 int launch_cgs2(const T* at, T* qt, T* r, T* rinv, T* work, int batch, int n,
                 void* stream_ptr) {
-  const int max_n = sizeof(T) == 4 ? 1024 : 512;
+  // float32: panel_kernel's 4 (32 n + 2 32 33 + 72) bytes <= 232,448
+  const int max_n = sizeof(T) == 4 ? 1728 : 512;
   if (n <= 0 || n % PANEL != 0 || n > max_n || batch <= 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;

@@ -12,7 +12,8 @@
 //
 // A walker is a cluster of C CTAs (a power of two, at most 16, the fewest
 // with R = ceil(n / C) <= rmax indices per CTA: rmax 32 for the fused loop,
-// n <= 512; 64 for the per-slice engine, n <= 1024).  A CTA keeps U and V
+// n <= 512; 64 for the per-slice engine, and past n = 1024 its 16 CTAs take
+// up to 128 each, n <= 2048).  A CTA keeps U and V
 // only for its own indices, a panel of G's
 // rows and columns at the group's sites, and the pending U/V entries at the
 // sites still to be visited, which their owner sends to every CTA with
@@ -35,27 +36,41 @@ namespace cg = cooperative_groups;
 constexpr int SITE_KMAX = 32;          // largest group (block rank)
 constexpr int SITE_THREADS = 256;      // a CTA of a cluster of C <= 8
 constexpr int SITE_CLUSTER_MAX = 16;   // CTAs per walker (non-portable > 8)
+// the per-slice engine's largest slice: 16 CTAs of at most 128 indices
+constexpr int SITE_SLICE_MAX_N = SITE_CLUSTER_MAX * 128;
+// dynamic shared memory one block may use on an H100
+constexpr size_t SITE_SMEM_MAX = 232448;
 
-// 16 bytes of T: one float4 or double2 load or store
-template <typename T>
+// N elements of T in 16-byte pieces (by default one float4 or double2
+// load or store)
+template <typename T, int N = 16 / sizeof(T)>
 struct alignas(16) Vec {
-  T v[16 / sizeof(T)];
+  T v[N];
 };
 
 // The cluster for a slice of n sites: C CTAs (the fewest, a power of two,
 // at most 16, with R = ceil(n / C) <= rmax indices each: rmax 32 for the
-// fused loop, 64 for the per-slice engine's) split the n indices into
-// blocks of R, so that one or two warps of each CTA carry its block's part
-// of every visit.  The shared-memory layout below: one 8-byte mbarrier per
+// fused loop, 64 for the per-slice engine's, whose 16 CTAs take R <= 128
+// past n = 1024) split the n indices into blocks of R, so that the first
+// ceil(R / 32) warps of each CTA carry its block's part of every visit.
+// The shared-memory layout below: one 8-byte mbarrier per
 // slot (kp, k rounded up to 8); in elements of T, own U, own V, and the
 // group's column and row panels of G (each NFL x k x Rp, Rp = R rounded up
 // to 4 so that each row of U is 16-byte aligned), the future-column buffers
 // FU, FV (NFL x k x kp), the group's diagonal (NFL x k), and the slice's
 // gb, us (n each) and delta (NFL x n), all three in visit order; then, as
 // ints, the visit order (n), the accept flags (n) and the visit slot of each
-// own index (Rp).  site_update.cu exports both (dqmc_site_cluster,
-// dqmc_site_smem_bytes); ops/kernels.py delayed_slice_smem mirrors the
-// byte count for the host, where no library may be built.
+// own index (Rp).  Where that passes SITE_SMEM_MAX (the per-slice engine in
+// float64 with two flavors past n = 1152) the lean layout drops the panels
+// and holds the slice's arrays for one group: own U and V, two flush
+// buffers of k x Rp (one flavor's owner block each), FU, FV, the diagonal,
+// the group's gb, us and delta (k, k, NFL x k) and, as ints, its order (k)
+// and the own slots (Rp); each visit thread then reads its own index's
+// entries of G's column and row from L2, and the flags are written at the
+// visit.  site_update.cu exports the cluster and the byte count of the
+// layout it launches (dqmc_site_cluster, dqmc_site_smem_bytes);
+// ops/kernels.py delayed_slice_smem mirrors the byte count for the host,
+// where no library may be built.
 struct SiteCluster {
   int C, R, Rp, threads;
 };
@@ -64,8 +79,8 @@ __host__ __device__ inline SiteCluster site_cluster(int n, int rmax = 32) {
   int C = 1;
   while (C < SITE_CLUSTER_MAX && (n + C - 1) / C > rmax) C *= 2;
   const int R = (n + C - 1) / C;
-  // rmax 64: up to two visit warps, and the flush by owner (its MAXV)
-  // wants at least 128 threads
+  // rmax 64: up to four visit warps, and the flush by owner (its MAXV)
+  // wants at least 128 threads, and 256 for R > 64
   if (rmax > 32)
     return {C, R, (R + 3) / 4 * 4, n >= SITE_THREADS ? SITE_THREADS : 128};
   // 16-CTA clusters (ns > 256) ran faster with 128 threads per CTA than
@@ -76,12 +91,25 @@ __host__ __device__ inline SiteCluster site_cluster(int n, int rmax = 32) {
 }
 
 template <typename T>
-size_t site_smem_bytes(int n, int k, int nfl, int rmax = 32) {
+size_t site_smem_bytes(int n, int k, int nfl, int rmax = 32,
+                       bool lean = false) {
   const size_t Rp = site_cluster(n, rmax).Rp, kp = (k + 7) / 8 * 8;
+  if (lean)
+    return 8 * kp +
+           sizeof(T) * (nfl * (2 * k * Rp + 2 * k * kp + k) + 2 * k * Rp +
+                        (2 + nfl) * (size_t)k) +
+           sizeof(int) * (k + Rp);
   return 8 * kp +
          sizeof(T) * (nfl * (4 * k * Rp + 2 * k * kp + k) +
                       (2 + nfl) * (size_t)n) +
          sizeof(int) * (2 * n + Rp);
+}
+
+// Whether the per-slice engine's slice takes the lean layout: only where
+// the full one does not fit
+template <typename T>
+bool site_lean(int n, int k, int nfl, int rmax) {
+  return rmax > 32 && site_smem_bytes<T>(n, k, nfl, rmax) > SITE_SMEM_MAX;
 }
 
 // The visits' handoff between the CTAs of a cluster (PTX for sm_90): a
@@ -189,8 +217,9 @@ __device__ __forceinline__ Vec<double> ldcg_vec(const double* p) {
   return {{v.x, v.y}};
 }
 
-// The flush of one flavor in the per-slice engine's clusters (R <= 64, 128
-// or 256 threads), G[a0 + l][j] += sum_s Uf[s][l] V[s][j] for the CTA's own
+// The flush of one flavor in the per-slice engine's clusters (R <= 64 on
+// 128 or 256 threads, R <= 128 on 256), G[a0 + l][j] += sum_s Uf[s][l]
+// V[s][j] for the CTA's own
 // rows l < own, owner by owner, CTA c starting at owner c (so that no two
 // CTAs read one owner's shared memory at once): the tile of the own rows
 // and owner r's R columns, cut into 4 x 4 pieces, each thread taking every
@@ -206,7 +235,9 @@ __device__ __forceinline__ void flush_by_owner(
     int off, T* buf0, T* buf1, int n, int R, int Rp, int own, int cnt) {
   constexpr int VW = 16 / sizeof(T);
   constexpr int TM = 4;
-  constexpr int MAXV = SITE_KMAX * 64 / VW / 128;  // >= 128 threads
+  // an owner block's vectors per thread: k Rp / VW over 128 threads for
+  // Rp <= 64, over 256 for Rp <= 128
+  constexpr int MAXV = SITE_KMAX * 64 / VW / 128;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int C = (int)cluster.num_blocks();
   const int c = (int)cluster.block_rank();
@@ -231,11 +262,12 @@ __device__ __forceinline__ void flush_by_owner(
         reinterpret_cast<Vec<T>*>(buf)[tid + i * nthreads] = pre[i];
   };
   // work item i: step i / per (owner c + i / per), piece tid + (i % per)
-  // nthreads (none past the last piece: l0 = own)
+  // nthreads (none past the last piece: l0 = own rounded up to TM, so that
+  // its reads of U stay 16-byte aligned when R is not a multiple of 4)
   auto locate = [&](int i, int& r, int& l0, int& c0) {
     r = (c + i / per) % C;
     const int t = tid + (i % per) * nthreads;
-    l0 = t < pieces ? t / CG * TM : own;
+    l0 = t < pieces ? t / CG * TM : (own + TM - 1) / TM * TM;
     c0 = t % CG * 4;
   };
   auto load_g = [&](T(&dst)[TM][4], int i) {
@@ -441,8 +473,8 @@ __device__ __forceinline__ void flush_by_column(
 //   1. the group's panels from G (global memory, L2): GC[t][l] = G[a][i_t],
 //      GR[t][l] = G[i_t][a] and GD[t] = G[i_t][i_t], and pos[l], the slot
 //      at which own index a is visited in this group (or -1);
-//   2. cnt visits by the first Rp / 32 warps (rounded up: one, or two when
-//      R > 32) of every CTA; the other warps wait at the cluster barrier
+//   2. cnt visits by the first Rp / 32 warps (rounded up: one to four) of
+//      every CTA; the other warps wait at the cluster barrier
 //      that ends the visits.  Every visit warp forms G_ii of the visit's
 //      site from GD and the future-column buffers FU[t][s] = U[s][i_t],
 //      FV[t][s] = V[s][i_t], and takes the same decision on the same bits,
@@ -465,8 +497,14 @@ __device__ __forceinline__ void flush_by_column(
 // from 0 in s order before it is added to G.  SPLIT_R rounds the product
 // first, r = 1 + round((1 - G_ii) delta), as the per-slice engine's
 // two-flavor kernel this replaces did (ptxas left it unfused there).
-// RMAX (32 or 64) bounds R.
-template <typename T, int NFL, int RMAX, bool SPLIT_R = false>
+// RMAX (32 or 64) selects the flush.  LEAN (the per-slice engine only,
+// per_visit) takes the lean layout (site_smem_bytes): step 1 stages the
+// group's order, gb, us and delta instead of G's panels, and each visit
+// thread loads its column and row entries of G before it waits for the
+// visit's slot; the flush's V buffers are then two k x Rp blocks of their
+// own.  The arithmetic is the same.
+template <typename T, int NFL, int RMAX, bool SPLIT_R = false,
+          bool LEAN = false>
 __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   constexpr int VW = 16 / sizeof(T);
   constexpr int BS = sizeof(T) == 4 ? 8 : 4;  // a block of the visit dots
@@ -484,19 +522,23 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   const int kp = (k + 7) / 8 * 8;
   unsigned long long* bars =                // kp: slot p's entries
       reinterpret_cast<unsigned long long*>(smem_raw);
+  // (LEAN: GC and GR are the flush's two buffers, k x Rp each, and the
+  // slice arrays hold the group's nsl = k visits, indexed from gv = 0)
+  constexpr int NP = LEAN ? 1 : NFL;
+  const int nsl = LEAN ? k : n;
   T* Uo = reinterpret_cast<T*>(bars + kp);  // NFL x k x Rp
   T* Vo = Uo + NFL * kR;                   // NFL x k x Rp
   T* GC = Vo + NFL * kR;                   // NFL x k x Rp: G[a][i_t]
-  T* GR = GC + NFL * kR;                   // NFL x k x Rp: G[i_t][a]
-  T* FU = GR + NFL * kR;                   // NFL x k x kp: U[s][i_t]
+  T* GR = GC + NP * kR;                    // NFL x k x Rp: G[i_t][a]
+  T* FU = GR + NP * kR;                    // NFL x k x kp: U[s][i_t]
   T* FV = FU + NFL * k * kp;               // NFL x k x kp: V[s][i_t]
   T* GD = FV + NFL * k * kp;               // NFL x k: G[i_t][i_t]
   T* gbs = GD + NFL * k;                   // n, by visit
-  T* uss = gbs + n;                        // n, by visit
-  T* dls = uss + n;                        // NFL x n, by visit
-  int* ords = reinterpret_cast<int*>(dls + NFL * n);
-  int* accs = ords + n;                    // n, by visit
-  int* pos = accs + n;                     // Rp
+  T* uss = gbs + nsl;                      // n, by visit
+  T* dls = uss + nsl;                      // NFL x n, by visit
+  int* ords = reinterpret_cast<int*>(dls + NFL * nsl);
+  int* accs = ords + nsl;                  // n, by visit (not LEAN)
+  int* pos = accs + (LEAN ? 0 : n);        // Rp
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int w = blockIdx.y;
@@ -506,14 +548,21 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   const T* gb = a.gb + w * a.s_stream;
   const T* delta = a.delta + w * NFL * a.s_stream;
   const T* us = a.us + w * a.s_stream;
-  for (int e = tid; e < n; e += nthreads) ords[e] = order[e];
-  __syncthreads();
-  for (int e = tid; e < n; e += nthreads) {
-    const int at = a.per_visit ? e : ords[e];
-    gbs[e] = gb[at];
-    uss[e] = us[e];
+  T* flags = a.flags + w * a.s_flags;
+  // the slice's streams into shared memory, each read once; the lean
+  // layout reads its group's in step 1
+  auto stage = [&](int e, int to) {
+    const int at = a.per_visit ? e : ords[to];
+    gbs[to] = gb[at];
+    uss[to] = us[e];
 #pragma unroll
-    for (int f = 0; f < NFL; ++f) dls[f * n + e] = delta[f * a.s_stream + at];
+    for (int f = 0; f < NFL; ++f)
+      dls[f * nsl + to] = delta[f * a.s_stream + at];
+  };
+  if constexpr (!LEAN) {
+    for (int e = tid; e < n; e += nthreads) ords[e] = order[e];
+    __syncthreads();
+    for (int e = tid; e < n; e += nthreads) stage(e, e);
   }
   if (tid < kp) mbar_init(smem_addr(bars + tid), 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -524,25 +573,35 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
   for (int g0 = 0; g0 < n; g0 += k) {
     const int group = g0 / k;
     const int cnt = min(k, n - g0);
-    // 1. the group's panels of G and the slots of the own indices
+    const int gv = LEAN ? 0 : g0;  // the group's first visit in the arrays
+    // 1. the group's panels of G (LEAN: its streams) and the slots of the
+    // own indices
     for (int l = tid; l < Rp; l += nthreads) pos[l] = -1;
+    if constexpr (LEAN) {
+      for (int t = tid; t < cnt; t += nthreads) {
+        ords[t] = order[g0 + t];
+        stage(g0 + t, t);
+      }
+    }
     __syncthreads();
     for (int t = tid; t < cnt; t += nthreads) {
-      const int i = ords[g0 + t];
+      const int i = ords[gv + t];
       if (i >= a0 && i < a0 + own) pos[i - a0] = t;
     }
-    for (int e = tid; e < NFL * kR; e += nthreads) {
-      const int l = e % Rp, t = (e / Rp) % k;
-      if (l >= own || t >= cnt) continue;
-      const int f = e / kR;
-      const int i = ords[g0 + t];
-      const T* Gf = Gw + f * nn;
-      GC[e] = __ldcg(Gf + (long long)(a0 + l) * n + i);
-      GR[e] = __ldcg(Gf + (long long)i * n + a0 + l);
+    if constexpr (!LEAN) {
+      for (int e = tid; e < NFL * kR; e += nthreads) {
+        const int l = e % Rp, t = (e / Rp) % k;
+        if (l >= own || t >= cnt) continue;
+        const int f = e / kR;
+        const int i = ords[g0 + t];
+        const T* Gf = Gw + f * nn;
+        GC[e] = __ldcg(Gf + (long long)(a0 + l) * n + i);
+        GR[e] = __ldcg(Gf + (long long)i * n + a0 + l);
+      }
     }
     for (int e = tid; e < NFL * k; e += nthreads) {
       if (e % k >= cnt) continue;
-      const int i = ords[g0 + e % k];
+      const int i = ords[gv + e % k];
       GD[e] = __ldcg(Gw + (e / k) * nn + (long long)i * n + i);
     }
     __syncthreads();
@@ -558,14 +617,27 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
         for (int t = 1 + l; t < cnt; t += 32)
           mbar_expect(smem_addr(bars + t), 2 * NFL * t * sizeof(T));
       for (int t = 0; t < cnt; ++t) {
-        const int i = ords[g0 + t];
-        if (t > 0) mbar_wait(smem_addr(bars + t), group & 1);
+        const int i = ords[gv + t];
         T gii[NFL], col[NFL], row[NFL];
+        if constexpr (LEAN) {
+          // G[a][i] and G[i][a] from L2, in flight during the wait (idle
+          // threads read an own row)
+          const int lg = max(min(l, own - 1), 0);
+#pragma unroll
+          for (int f = 0; f < NFL; ++f) {
+            const T* Gf = Gw + f * nn;
+            col[f] = __ldcg(Gf + (long long)(a0 + lg) * n + i);
+            row[f] = __ldcg(Gf + (long long)i * n + a0 + lg);
+          }
+        }
+        if (t > 0) mbar_wait(smem_addr(bars + t), group & 1);
 #pragma unroll
         for (int f = 0; f < NFL; ++f) {
           gii[f] = GD[f * k + t];
-          col[f] = GC[(f * k + t) * Rp + lc];
-          row[f] = GR[(f * k + t) * Rp + lc];
+          if constexpr (!LEAN) {
+            col[f] = GC[(f * k + t) * Rp + lc];
+            row[f] = GR[(f * k + t) * Rp + lc];
+          }
         }
         // in blocks of BS steps: every load of a block issued at once from
         // an address clamped into its buffer, each step's result kept only
@@ -610,19 +682,19 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
         T d[NFL], rf[NFL];
 #pragma unroll
         for (int f = 0; f < NFL; ++f) {
-          d[f] = dls[f * n + g0 + t];
+          d[f] = dls[f * nsl + gv + t];
           rf[f] = SPLIT_R ? T(1) + mul_rn(T(1) - gii[f], d[f])
                           : fma(T(1) - gii[f], d[f], T(1));
         }
         bool accept;
         if (NFL == 1) {
           // >= 0: gb > 0 times a square
-          const T ratio = gbs[g0 + t] * rf[0] * rf[0];
-          accept = uss[g0 + t] < ratio;
+          const T ratio = gbs[gv + t] * rf[0] * rf[0];
+          accept = uss[gv + t] < ratio;
         } else {
-          const T ratio = gbs[g0 + t] * rf[0] * rf[NFL - 1];
+          const T ratio = gbs[gv + t] * rf[0] * rf[NFL - 1];
           // u < 1 strictly
-          accept = uss[g0 + t] < (ratio < T(0) ? -ratio : ratio);
+          accept = uss[gv + t] < (ratio < T(0) ? -ratio : ratio);
           if (accept && ratio < T(0)) sign = -sign;
         }
         if (l < own) {
@@ -645,14 +717,24 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
             }
           }
         }
-        if (tid == 0) accs[g0 + t] = accept;
+        if constexpr (LEAN) {
+          if (c == 0 && tid == 0) {
+            if (a.per_visit)
+              flags[g0 + t] = accept ? T(1) : T(0);
+            else if (accept)
+              flags[i] = T(1);
+          }
+        } else if (tid == 0) {
+          accs[g0 + t] = accept;
+        }
       }
     }
     cluster.sync();
 
     // 3. G[a][j] += sum_s U[s][a] V[s][j] over the own rows a: by owner
     // when RMAX = 64 (GC and GR, free until the next group, hold V's
-    // blocks), else by column, each thread one column of all own rows
+    // blocks; LEAN: they are its buffers), else by column, each thread
+    // one column of all own rows
 #pragma unroll
     for (int f = 0; f < NFL; ++f) {
       T* Gf = Gw + f * nn + (long long)a0 * n;
@@ -668,12 +750,13 @@ __device__ __forceinline__ void site_loop_body(const SiteLoopArgs<T>& a) {
     cluster.sync();
   }
   if (c == 0) {
-    T* flags = a.flags + w * a.s_flags;
-    for (int e = tid; e < n; e += nthreads) {
-      if (a.per_visit)
-        flags[e] = accs[e] ? T(1) : T(0);
-      else if (accs[e])
-        flags[ords[e]] = T(1);
+    if constexpr (!LEAN) {
+      for (int e = tid; e < n; e += nthreads) {
+        if (a.per_visit)
+          flags[e] = accs[e] ? T(1) : T(0);
+        else if (accs[e])
+          flags[ords[e]] = T(1);
+      }
     }
     if (NFL == 2 && tid == 0) a.sgn[w] *= sign;
   }

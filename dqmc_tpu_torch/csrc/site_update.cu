@@ -45,8 +45,9 @@
 //
 // What the design does about it: one launch per slice.  A walker is a
 // cluster of the fewest CTAs (C = 1 ... 16) that own at most R = 64 sites
-// each (C = 1 up to n = 64, 4 at n = 256, 16 at n = 1024; one or two
-// warps of each CTA carry the visits), so U and V live in the cluster's
+// each (C = 1 up to n = 64, 4 at n = 256, 16 at n = 1024, and 16 of up to
+// 128 sites past it, n <= 2048; one to four warps of each CTA carry the
+// visits), so U and V live in the cluster's
 // shared memory, O(k n / C) per CTA; the pending entries a visit needs
 // reach every CTA by st.async as their owner makes them, and each flush
 // runs on the walker's C SMs over each CTA's own rows, owner by owner
@@ -58,7 +59,9 @@
 // FP32 FMA peak of those SMs alone is ~9 us per flush (an H100 takes ~40;
 // neither V's remote reads nor G's traffic nor the barriers account for
 // the rest); the visits (~0.76 ms per slice in float32) wait for one
-// cross-SM handoff each.
+// cross-SM handoff each.  In float64 with two flavors past n = 1152 the
+// CTA's panels of G would pass its 227 KB: that case takes the lean layout
+// (site_loop.cuh), whose visit threads read their entries of G from L2.
 // Every sum is an explicit fma() in the order of the first design (visit
 // dots in s order on G's entry, r = fma(1 - G_ii, delta, 1) -- rounded
 // product first with two flavors, as that kernel's build did -- and the
@@ -73,15 +76,17 @@
 // f32) through L2 from one SM, with a 64-bit division per entry and two
 // block barriers.  What the design does about it: a walker is a cluster
 // of the fewest CTAs (C = 1 ... 16) with at most 64 rows each (C = 1 up to
-// n = 64, 4 at 256, 16 at 1024), each CTA holding its rows in shared
-// memory from the first visit to the last (float64 rows past 227 KB stay
-// in G, in L2); only row i of each visit travels, pushed by its owner
+// n = 64, 4 at 256, 16 at 1024, then 16 of up to 128 rows, n <= 2048),
+// each CTA holding its rows in shared memory from the first visit to the
+// last (rows past its 227 KB stay in G, in L2: float64 at n = 1024, most
+// rows past n = 1024); only row i of each visit travels, pushed by its owner
 // into every CTA with st.async once that row has the visit before applied
 // (the owner updates it first), and every CTA takes the decision from that
 // row's G_ii on the same bits.  One cluster barrier per visit (split into
 // arrive and wait, so the decision overlaps it) frees the other buffers.
-// Thread t carries a 16-byte column vector of its CTA's rows, so there is
-// no index division.  The update stays bound by shared-memory traffic, 8
+// Thread t carries a 16-byte column vector of its CTA's rows (32 bytes in
+// float64 past n = 1024, where a row has more than 512 16-byte vectors),
+// so there is no index division.  The update stays bound by shared-memory traffic, 8
 // (f32) or 16 (f64) bytes per entry and accepted visit, and a rejected
 // visit by the handoff.
 // #6 keeps the first design's forms, col = prefac G[a][i], row = G[i][b] -
@@ -104,21 +109,21 @@ using dqmc::smem_addr;
 using dqmc::Vec;
 
 // The fewest CTAs with R <= 64 sites each (C = 1 up to n = 64, 4 at 256, 16
-// at 1024), 128 or 256 threads; the flush by owner keeps two pieces of G
-// in registers.
-template <typename T, int NFL>
+// at 1024; past it 16 with R <= 128), 128 or 256 threads; the flush by
+// owner keeps two pieces of G in registers.  LEAN: the lean layout.
+template <typename T, int NFL, bool LEAN>
 __global__ void __launch_bounds__(dqmc::SITE_THREADS, 1)
 delayed_slice_kernel(const dqmc::SiteLoopArgs<T> args) {
-  dqmc::site_loop_body<T, NFL, 64, NFL == 2>(args);
+  dqmc::site_loop_body<T, NFL, 64, NFL == 2, LEAN>(args);
 }
 
 // #6: one slice of the rank-1 loop on the cluster of walker blockIdx.y
 // (see the head of this file).  Walker w's rows are split over the C CTAs
 // of its cluster, R = ceil(n / C) each: CTA c owns rows a0 = c R ...
-// a0 + own - 1.  Thread t carries the 16-byte column vector j = t % NV
-// (NV = ceil(n / VW)) of the own rows l = t / NV, + RG, ... (RG = threads /
-// NV), and only it ever touches those entries, so the update needs no
-// barrier of its own.  Its first KR rows live in its registers, the next
+// a0 + own - 1.  Thread t carries the VB-byte column vector j = t % NV
+// (VW = VB / sizeof(T) entries, NV = ceil(n / VW)) of the own rows
+// l = t / NV, + RG, ... (RG = threads / NV), and only it ever touches those
+// entries, so the update needs no barrier of its own.  Its first KR rows live in its registers, the next
 // rs rows of the CTA in shared memory (padded to ldn = NV VW columns), the
 // rest in place in G (float64 rows past the CTA's 227 KB).  Per visit v
 // (site i, the next site nx):
@@ -152,11 +157,14 @@ struct Rank1Args {
 };
 
 // Threads per CTA at most (16 warps; float64 at n = 1024 needs 512
-// vectors), and own rows per thread held in registers: 32 registers of G
-// per thread in either type.  (256 threads of 32 rows each ran 1.3-1.7x
-// slower in float32 on an H100: fewer warps to hide shared memory.)
+// vectors of 16 bytes, and past it takes vectors of 32), and own rows per
+// thread held in registers: 32 registers of G per thread in either type
+// and width (RANK1_KR rows of 16 bytes, half as many of 32).  (256 threads
+// of 32 rows each ran 1.3-1.7x slower in float32 on an H100: fewer warps
+// to hide shared memory.)
 constexpr int RANK1_THREADS = 512;
 constexpr int RANK1_KR = 8;
+constexpr int RANK1_MAX_N = dqmc::SITE_SLICE_MAX_N;  // 16 CTAs, R <= 128
 constexpr int RANK1_BATCH = 4;  // rows in memory loaded together
 constexpr int RANK1_SLOTS = 4;  // row slots across a cluster (2 on one CTA)
 
@@ -170,15 +178,19 @@ __device__ __forceinline__ void st_async_vec(unsigned dst, const float (&x)[4],
       : "memory");
 }
 
+// (float64: 16 bytes per st.async, each counted on the barrier)
+template <int N>
 __device__ __forceinline__ void st_async_vec(unsigned dst,
-                                             const double (&x)[2],
+                                             const double (&x)[N],
                                              unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 [%0], "
-      "{%1, %2}, [%3];" ::"r"(dst),
-      "l"(__double_as_longlong(x[0])), "l"(__double_as_longlong(x[1])),
-      "r"(bar)
-      : "memory");
+#pragma unroll
+  for (int h = 0; h < N; h += 2)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 "
+        "[%0], {%1, %2}, [%3];" ::"r"(dst + 8 * h),
+        "l"(__double_as_longlong(x[h])), "l"(__double_as_longlong(x[h + 1])),
+        "r"(bar)
+        : "memory");
 }
 
 // one arrival on an mbarrier of a CTA of the cluster (a shared::cluster
@@ -205,10 +217,10 @@ __host__ __device__ inline size_t align16(size_t b) {
   return (b + 15) / 16 * 16;
 }
 
-template <typename T>
+template <typename T, int VB>
 __host__ __device__ inline Rank1Layout rank1_layout(int n, int C,
                                                     size_t smem_max) {
-  constexpr int VW = 16 / sizeof(T);
+  constexpr int VW = VB / sizeof(T);
   Rank1Layout L;
   const int D = C == 1 ? 2 : RANK1_SLOTS;
   L.C = C;
@@ -216,8 +228,8 @@ __host__ __device__ inline Rank1Layout rank1_layout(int n, int C,
   L.Rp = (L.R + VW - 1) / VW * VW;
   L.NV = (n + VW - 1) / VW;
   L.ldn = L.NV * VW;
-  constexpr int KR = RANK1_KR;
-  const int fit = RANK1_THREADS / L.NV;  // >= 1 for n <= 1024
+  constexpr int KR = RANK1_KR * 16 / VB;
+  const int fit = RANK1_THREADS / L.NV;  // >= 1 for NV <= 512
   const int RG = L.R < fit ? L.R : fit;
   L.threads = L.NV * RG;
   const int mem = L.R > KR * RG ? L.R - KR * RG : 0;
@@ -232,11 +244,12 @@ __host__ __device__ inline Rank1Layout rank1_layout(int n, int C,
   return L;
 }
 
-template <typename T, bool ONE>
+template <typename T, bool ONE, int VB>
 __global__ void __launch_bounds__(RANK1_THREADS, 1)
 rank1_sites_kernel(const Rank1Args<T> a) {
-  constexpr int VW = 16 / sizeof(T);
-  constexpr int B = RANK1_BATCH, KR = RANK1_KR;
+  constexpr int VW = VB / sizeof(T);
+  constexpr int B = RANK1_BATCH, KR = RANK1_KR * 16 / VB;
+  using V = Vec<T, VW>;
   constexpr int D = ONE ? 2 : RANK1_SLOTS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n;
@@ -245,7 +258,7 @@ rank1_sites_kernel(const Rank1Args<T> a) {
     C = (int)cg::this_cluster().num_blocks();
     c = (int)cg::this_cluster().block_rank();
   }
-  const Rank1Layout L = rank1_layout<T>(n, C, 0);
+  const Rank1Layout L = rank1_layout<T, VB>(n, C, 0);
   const int R = L.R, NV = L.NV, ldn = L.ldn, Rp = L.Rp;
   const int a0 = c * R;
   const int own = max(0, min(R, n - a0));
@@ -271,7 +284,7 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   const T* delta = a.delta + ws;
   const T* us = a.us + ws;
   const bool gvec = n % VW == 0;  // G's rows 16-byte aligned
-  const unsigned row_bytes = 16u * NV;
+  const unsigned row_bytes = (unsigned)VB * NV;
   T greg[KR][VW];  // own rows rg + k RG, k < KR
   // Across CTAs the rows in memory lag one accepted visit behind (pend):
   // its update, pcl[l] times this thread's rvp, is applied with the next
@@ -285,7 +298,7 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   auto gload = [&](int l, T (&x)[VW]) {  // own row l's vector j from G
     const T* g = Gw + (long long)(a0 + l) * n + jb;
     if (gvec) {
-      const Vec<T> v = *reinterpret_cast<const Vec<T>*>(g);
+      const V v = *reinterpret_cast<const V*>(g);
 #pragma unroll
       for (int q = 0; q < VW; ++q) x[q] = v.v[q];
     } else {
@@ -296,10 +309,10 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   auto gstore = [&](int l, const T (&x)[VW]) {
     T* g = Gw + (long long)(a0 + l) * n + jb;
     if (gvec) {
-      Vec<T> v;
+      V v;
 #pragma unroll
       for (int q = 0; q < VW; ++q) v.v[q] = x[q];
-      *reinterpret_cast<Vec<T>*>(g) = v;
+      *reinterpret_cast<V*>(g) = v;
     } else {
 #pragma unroll
       for (int q = 0; q < VW; ++q)
@@ -309,8 +322,8 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   // own row l >= LR: shared memory for l - LR < rs, else G
   auto load = [&](int l, T (&x)[VW]) {
     if (l - LR < rs) {
-      const Vec<T> v =
-          *reinterpret_cast<const Vec<T>*>(Gs + (l - LR) * ldn + jb);
+      const V v =
+          *reinterpret_cast<const V*>(Gs + (l - LR) * ldn + jb);
 #pragma unroll
       for (int q = 0; q < VW; ++q) x[q] = v.v[q];
     } else {
@@ -319,10 +332,10 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   };
   auto store = [&](int l, const T (&x)[VW]) {
     if (l - LR < rs) {
-      Vec<T> v;
+      V v;
 #pragma unroll
       for (int q = 0; q < VW; ++q) v.v[q] = x[q];
-      *reinterpret_cast<Vec<T>*>(Gs + (l - LR) * ldn + jb) = v;
+      *reinterpret_cast<V*>(Gs + (l - LR) * ldn + jb) = v;
     } else {
       gstore(l, x);
     }
@@ -338,10 +351,10 @@ rank1_sites_kernel(const Rank1Args<T> a) {
   auto push = [&](int u, const T (&x)[VW]) {
     const int sl = u % D;
     if constexpr (ONE) {
-      Vec<T> v;
+      V v;
 #pragma unroll
       for (int q = 0; q < VW; ++q) v.v[q] = x[q];
-      *reinterpret_cast<Vec<T>*>(slots + sl * ldn + jb) = v;
+      *reinterpret_cast<V*>(slots + sl * ldn + jb) = v;
     } else {
       if (u >= D) mbar_wait(smem_addr(freed + sl), (u / D - 1) & 1);
       const unsigned dst = smem_addr(slots + sl * ldn + jb);
@@ -437,7 +450,7 @@ rank1_sites_kernel(const Rank1Args<T> a) {
     const T prefac = d / rf;
     T rv[VW];
     {
-      const Vec<T> r = *reinterpret_cast<const Vec<T>*>(row + jb);
+      const V r = *reinterpret_cast<const V*>(row + jb);
 #pragma unroll
       for (int q = 0; q < VW; ++q)
         rv[q] = jb + q == i ? r.v[q] - T(1) : r.v[q];
@@ -579,22 +592,32 @@ template <typename T, int NFL>
 int launch_delayed_slice(T* G, T* acc, const int* order, long long s_order,
                          const T* gb, const T* delta, const T* us, T* sgn,
                          int n, int k, int batch, void* stream) {
-  if (n <= 0 || n > 1024 || k <= 0 || k > dqmc::SITE_KMAX || batch <= 0 ||
-      batch > 65535 || (s_order != 0 && s_order != n) ||
-      (NFL == 2 && sgn == nullptr))
+  if (n <= 0 || n > dqmc::SITE_SLICE_MAX_N || k <= 0 ||
+      k > dqmc::SITE_KMAX || batch <= 0 || batch > 65535 ||
+      (s_order != 0 && s_order != n) || (NFL == 2 && sgn == nullptr))
     return (int)cudaErrorInvalidValue;
   const dqmc::SiteLoopArgs<T> args{G,  acc, n,   order, s_order, gb, delta,
                                    us, n,   sgn, n,     k,       true};
-  static dqmc::SiteLaunchCache caches;
-  return dqmc::launch_site_loop<T>(
-      delayed_slice_kernel<T, NFL>, caches, args,
-      dqmc::site_smem_bytes<T>(n, k, NFL, 64), 64, batch, stream);
+  static dqmc::SiteLaunchCache caches[2];  // full and lean layout
+  const bool lean = dqmc::site_lean<T>(n, k, NFL, 64);
+  const size_t smem = dqmc::site_smem_bytes<T>(n, k, NFL, 64, lean);
+  if (!lean)
+    return dqmc::launch_site_loop<T>(delayed_slice_kernel<T, NFL, false>,
+                                     caches[0], args, smem, 64, batch,
+                                     stream);
+  // only float64 with two flavors passes the full layout's budget at
+  // n <= 2048, so only it has a lean build
+  if constexpr (sizeof(T) == 8 && NFL == 2)
+    return dqmc::launch_site_loop<T>(delayed_slice_kernel<T, NFL, true>,
+                                     caches[1], args, smem, 64, batch,
+                                     stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The cluster of #6 for n sites: the fewest CTAs (a power of two, at most
 // 16) with R = ceil(n / C) <= RANK1_RMAX rows each, the fastest of C = 1
 // ... 16 at n = 36, 256 and 1024 on an H100 (scripts/seed_split.py rank1
-// --parts times builds each).
+// --parts times builds each); past n = 1024, 16 CTAs of up to 128 rows.
 constexpr int RANK1_RMAX = 64;
 
 inline int rank1_cluster(int n) {
@@ -603,15 +626,15 @@ inline int rank1_cluster(int n) {
   return C;
 }
 
-// One launch of rank1_sites_kernel<T, ONE> (ONE: C = 1) in clusters of
+// One launch of rank1_sites_kernel<T, ONE, VB> (ONE: C = 1) in clusters of
 // L.C CTAs; each instantiation keeps, per device, its shared-memory
 // attribute and whether its cluster fits at the last n.
-template <typename T, bool ONE>
+template <typename T, bool ONE, int VB>
 int launch_rank1(const Rank1Args<T>& args, const Rank1Layout& L, int batch,
                  int dev, void* stream) {
   static dqmc::SiteLaunchCache caches;
   dqmc::SiteLaunchEntry& cache = caches.of(dev);
-  const auto kernel = rank1_sites_kernel<T, ONE>;
+  const auto kernel = rank1_sites_kernel<T, ONE, VB>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(L.C, batch, 1);
   cfg.blockDim = dim3(L.threads, 1, 1);
@@ -651,7 +674,7 @@ template <typename T>
 int launch_rank1_sites(T* G, T* acc, const int* order, long long s_order,
                        const T* gb, const T* delta, const T* us, int n,
                        int batch, void* stream) {
-  if (n <= 0 || n > 1024 || batch <= 0 || batch > 65535 ||
+  if (n <= 0 || n > RANK1_MAX_N || batch <= 0 || batch > 65535 ||
       (s_order != 0 && s_order != n))
     return (int)cudaErrorInvalidValue;
   int dev = 0, smem_max = 0;
@@ -660,12 +683,23 @@ int launch_rank1_sites(T* G, T* acc, const int* order, long long s_order,
     err = cudaDeviceGetAttribute(&smem_max,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const Rank1Layout L =
-      rank1_layout<T>(n, rank1_cluster(n), (size_t)smem_max);
+  const int C = rank1_cluster(n);
+  // float64 rows of more than RANK1_THREADS 16-byte vectors (n > 1024,
+  // on 16 CTAs): 32-byte vectors
+  if constexpr (sizeof(T) == 8) {
+    if ((n + 1) / 2 > RANK1_THREADS) {
+      const Rank1Layout L = rank1_layout<T, 32>(n, C, (size_t)smem_max);
+      if (L.g_off > (size_t)smem_max)
+        return (int)cudaErrorLaunchOutOfResources;
+      const Rank1Args<T> args{G, acc, order, s_order, gb, delta, us, n, L.rs};
+      return launch_rank1<T, false, 32>(args, L, batch, dev, stream);
+    }
+  }
+  const Rank1Layout L = rank1_layout<T, 16>(n, C, (size_t)smem_max);
   if (L.g_off > (size_t)smem_max) return (int)cudaErrorLaunchOutOfResources;
   const Rank1Args<T> args{G, acc, order, s_order, gb, delta, us, n, L.rs};
-  return L.C == 1 ? launch_rank1<T, true>(args, L, batch, dev, stream)
-                  : launch_rank1<T, false>(args, L, batch, dev, stream);
+  return L.C == 1 ? launch_rank1<T, true, 16>(args, L, batch, dev, stream)
+                  : launch_rank1<T, false, 16>(args, L, batch, dev, stream);
 }
 
 }  // namespace
@@ -697,14 +731,21 @@ DQMC_SITE_API(double, _f64)
 
 // The cluster of the site loop for n sites with R <= rmax (32: the fused
 // loop, 64: the delayed slice): its CTAs per walker, and the dynamic shared
-// memory of one CTA in bytes at rank k, nfl flavors, itemsize 4 or 8
-// (ops/kernels.py delayed_slice_smem mirrors the second for the host).
+// memory of one CTA in bytes at rank k, nfl flavors, itemsize 4 or 8, in
+// the layout it is launched with (ops/kernels.py delayed_slice_smem
+// mirrors the second for the host).
+template <typename T>
+long long launched_smem_bytes(int n, int k, int nfl, int rmax) {
+  return (long long)dqmc::site_smem_bytes<T>(
+      n, k, nfl, rmax, dqmc::site_lean<T>(n, k, nfl, rmax));
+}
+
 extern "C" int dqmc_site_cluster(int n, int rmax) {
   return dqmc::site_cluster(n, rmax).C;
 }
 
 extern "C" long long dqmc_site_smem_bytes(int n, int k, int nfl,
                                           int itemsize, int rmax) {
-  return itemsize == 8 ? dqmc::site_smem_bytes<double>(n, k, nfl, rmax)
-                       : dqmc::site_smem_bytes<float>(n, k, nfl, rmax);
+  return itemsize == 8 ? launched_smem_bytes<double>(n, k, nfl, rmax)
+                       : launched_smem_bytes<float>(n, k, nfl, rmax);
 }

@@ -53,7 +53,7 @@ import torch
 from dqmc_tpu_torch import _cuda, hsfield
 
 KMAX = 32         # largest block rank the CUDA kernels take
-MAX_SITES = 1024  # largest ns of the delayed-slice and rank-1 kernels
+MAX_SITES = 2048  # largest ns of the delayed-slice and rank-1 kernels
 SMEM_BYTES = 232448  # dynamic shared memory one block may use (H100)
 
 
@@ -316,18 +316,16 @@ KERNELS = SimpleNamespace(rank1=rank1_slice_cuda,
                           submatrix_flush=_flush_cuda("submatrix_flush"))
 
 
-def _roadmap(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (ROADMAP: site-update kernels beyond the 32x32 lattice and "
-        f"rank {KMAX})")
+def _roadmap(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} (ROADMAP queue 2, {item})")
 
 
 def slice_cluster(ns: int, rmax: int = 64) -> tuple:
     """(C, R, Rp) of a site-loop cluster for a slice of ns sites
     (csrc/site_loop.cuh site_cluster): the fewest CTAs per walker, a power
     of two up to 16, with R = ceil(ns / C) <= rmax sites each (rmax 64 for
-    the per-slice engine's delayed slice, 32 for the fused loop), Rp = R
-    rounded up to 4."""
+    the per-slice engine's delayed slice, whose 16 CTAs take R up to 128
+    past ns = 1024; 32 for the fused loop), Rp = R rounded up to 4."""
     C = 1
     while C < 16 and -(-ns // C) > rmax:
         C *= 2
@@ -337,8 +335,9 @@ def slice_cluster(ns: int, rmax: int = 64) -> tuple:
 
 def delayed_slice_smem(ns: int, itemsize: int, nfl: int = 1,
                        k: int = KMAX, rmax: int = 64) -> int:
-    """Shared memory one CTA of a site-loop cluster needs, in bytes: the
-    host's copy of csrc/site_loop.cuh site_smem_bytes (exported as
+    """Shared memory one CTA of a site-loop cluster needs, in bytes, in the
+    layout the kernel is launched with: the host's copy of
+    csrc/site_loop.cuh site_smem_bytes and site_lean (exported as
     ``dqmc_site_smem_bytes``, which ``chip_smoke.py`` holds it against at
     every shape), for deciding on a host with no CUDA build; rmax as
     :func:`slice_cluster`.  One 8-byte mbarrier per slot (kp, k rounded up
@@ -346,12 +345,22 @@ def delayed_slice_smem(ns: int, itemsize: int, nfl: int = 1,
     (4 k Rp elements), the pending U and V entries at the group's sites
     (2 k kp) and the group's diagonal (k); the slice's gb, us and delta
     ((2 + nfl) ns); as ints, the visit order and the accept flags (2 ns)
-    and the own slots (Rp)."""
+    and the own slots (Rp).  Where that passes :data:`SMEM_BYTES` the
+    per-slice engine's slice (rmax > 32) takes the lean layout: per flavor
+    own U and V (2 k Rp), the pending entries and the diagonal; two flush
+    buffers (2 k Rp); the group's gb, us and delta ((2 + nfl) k); as ints,
+    the group's order (k) and the own slots (Rp)."""
     Rp = slice_cluster(ns, rmax)[2]
     kp = (k + 7) // 8 * 8
-    return (8 * kp
+    full = (8 * kp
             + itemsize * (nfl * (4 * k * Rp + 2 * k * kp + k) + (2 + nfl) * ns)
             + 4 * (2 * ns + Rp))
+    if rmax == 32 or full <= SMEM_BYTES:
+        return full
+    return (8 * kp
+            + itemsize * (nfl * (2 * k * Rp + 2 * k * kp + k) + 2 * k * Rp
+                          + (2 + nfl) * k)
+            + 4 * (k + Rp))
 
 
 def submatrix_group_ctas(ns: int) -> int:
@@ -360,7 +369,7 @@ def submatrix_group_ctas(ns: int) -> int:
     ``dqmc_submatrix_group_ctas``): ceil(ns / 64), so that each owns at
     most 64 indices.  No cluster, so every ns has a grid: the kernel takes
     every ns the per-slice engine gives it (the delayed and rank-1 kernels
-    stop at MAX_SITES)."""
+    stop at :data:`MAX_SITES`)."""
     return -(-ns // 64)
 
 
@@ -386,10 +395,11 @@ def check_cuda_slice(G, order, gb, delta, us, scheme: str, k: int) -> None:
     W, n = G.shape[0], G.shape[-2]
     if scheme != "submatrix" and n > MAX_SITES:
         raise _roadmap(f"{scheme} site update at ns={n}: the kernel takes "
-                       f"ns <= {MAX_SITES}")
+                       f"ns <= {MAX_SITES}",
+                       f"item 3: the site loops past ns = {MAX_SITES}")
     if scheme != "rank1" and k > KMAX:
         raise _roadmap(f"{scheme} site update at k={k}: the kernels take "
-                       f"k <= {KMAX}")
+                       f"k <= {KMAX}", f"item 4: k > {KMAX}")
     flv = tuple(G.shape[1:-2])
     if flv not in ((), (2,)) or (flv and scheme != "delayed"):
         raise NotImplementedError(

@@ -24,8 +24,9 @@ import torch
 from dqmc_tpu_torch import _cuda
 
 _BLOCK = 32
-# the kernel stages a 32-row panel (32 n elements) in shared memory
-_MAX_N = {torch.float32: 1024, torch.float64: 512}
+# the kernel stages a 32-row panel (32 n elements) in shared memory: at most
+# a block's 232,448 bytes in float32 (csrc/cgs2_qr.cu launch_cgs2)
+_MAX_N = {torch.float32: 1728, torch.float64: 512}
 
 
 def diag_block_inverse(Rpp: torch.Tensor) -> torch.Tensor:
@@ -93,7 +94,8 @@ def _cgs2_qr_cuda(A: torch.Tensor, with_inv: bool):
     max_n = _MAX_N.get(A.dtype, 0)
     if n % _BLOCK or n > max_n:
         raise ValueError(f"cgs2_qr kernel: n={n} must be a multiple of "
-                         f"{_BLOCK} and <= {max_n} for {A.dtype}")
+                         f"{_BLOCK} and <= {max_n} for {A.dtype} (ROADMAP "
+                         f"queue 2, item 2: K1 past n = {max_n})")
     _cuda.check(A, "A", device=A.device, dtype=A.dtype, shape=(B, n, n))
     sfx = _cuda.suffix(A.dtype)
     at = A.transpose(-1, -2).contiguous()

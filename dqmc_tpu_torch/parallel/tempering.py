@@ -64,8 +64,8 @@ FUSED_PT = (
     "parallel tempering with engine = fused: the fused engine takes one "
     "shared expK and g for the whole walker batch, and parallel tempering "
     "runs a beta per walker on the per-slice engine, as the JAX package "
-    "does (ROADMAP: queue 1, item 7, the fused engine with a (g, expK) "
-    "per walker)")
+    "does (ROADMAP: queue 2, item 5, the fused engine for parallel "
+    "tempering, with a (g, expK) per walker)")
 
 
 def partner_indices(n_replicas: int, attempt: int) -> torch.Tensor:

@@ -201,25 +201,28 @@ def test_pick_rank_is_jax_rule():
 def test_cuda_slice_check_refuses_cpu_tensors(scheme):
     """The check that guards every kernel launch refuses CPU tensors: a
     slice on the CUDA path launches its kernels or raises, and never runs
-    the plain twin.  The submatrix scheme's kernels take every ns (#5's
-    grid has no cluster), so its check reaches the device check at
-    ns = 2048, where the delayed and rank-1 kernels stop at MAX_SITES
+    the plain twin.  Every scheme's check reaches the device check at
+    ns = 16 and at the 40x40 lattice's ns = 1600; the submatrix scheme's
+    kernels take every ns (#5's grid has no cluster), so its check does at
+    ns = 4096 too, where the delayed and rank-1 kernels stop at MAX_SITES
     (test_cuda_slice_check_refuses_shapes_beyond_the_kernels)."""
-    n = 2048 if scheme == "submatrix" else 16
-    G = torch.zeros((2, n, n))
-    v = torch.zeros((2, n))
-    order = torch.arange(n, dtype=torch.int32)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        tk.check_cuda_slice(G, order, v, v, v, scheme, 4)
+    for n in (16, 1600) + ((4096,) if scheme == "submatrix" else ()):
+        G = torch.zeros((2, n, n))
+        v = torch.zeros((2, n))
+        order = torch.arange(n, dtype=torch.int32)
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            tk.check_cuda_slice(G, order, v, v, v, scheme, 4)
 
 
 @pytest.mark.parametrize("scheme,n,k", [("delayed", 8, 64),
                                         ("submatrix", 8, 33),
-                                        ("delayed", 1056, 32),
-                                        ("rank1", 1056, 1)])
+                                        ("delayed", 2049, 32),
+                                        ("rank1", 2049, 1)])
 def test_cuda_slice_check_refuses_shapes_beyond_the_kernels(scheme, n, k):
-    """Shapes and ranks the kernels do not take raise NotImplementedError
-    naming the ROADMAP, before any device check."""
+    """Shapes and ranks the kernels do not take (k > KMAX, ns = MAX_SITES
+    + 1) raise NotImplementedError naming the ROADMAP, before any device
+    check."""
+    assert tk.MAX_SITES == 2048
     G = torch.zeros((1, n, 1))
     v = torch.zeros((1, n))
     order = torch.arange(n, dtype=torch.int32)
@@ -230,17 +233,23 @@ def test_cuda_slice_check_refuses_shapes_beyond_the_kernels(scheme, n, k):
 def test_delayed_slice_budget_takes_every_kernel_shape():
     """The delayed-slice kernel's cluster and shared memory (the Python
     mirror of csrc/site_loop.cuh) fit every shape the per-slice engine
-    gives it: ns <= 1024, k <= 32, one or two flavors, float32 or float64;
+    gives it: ns <= 2048, k <= 32, one or two flavors, float32 or float64;
     so do the submatrix kernels' (#2c's cluster, #5's grid).
     A cluster is the fewest CTAs (at most 16) with at most 64 sites each,
-    and a CTA takes at most one block's 232,448 bytes of dynamic shared
-    memory; the largest shape, float64 with two flavors at ns = 1024,
-    needs 205,824."""
-    largest = 0
+    or past ns = 1024 16 CTAs with at most 128, and a CTA takes at most one
+    block's 232,448 bytes of dynamic shared memory: the full layout up to
+    205,824 bytes at ns = 1024 and 232,440 at ns = 1305 (float64, two
+    flavors, k = 28); past it that case takes the lean layout, 188,688
+    bytes at ns = 1600 and 231,808 at 2048, and float64 with one flavor
+    takes 214,016 bytes at 2048 in the full one."""
+    largest, lean = 0, set()
     for ns in range(1, tk.MAX_SITES + 1):
         C, R, Rp = tk.slice_cluster(ns)
         assert C in (1, 2, 4, 8, 16) and C * R >= ns > (C - 1) * R
-        assert R <= 64 and (C == 1 or -(-ns // (C // 2)) > 64)
+        if ns <= 1024:
+            assert R <= 64 and (C == 1 or -(-ns // (C // 2)) > 64)
+        else:
+            assert C == 16 and 64 < R <= 128
         assert Rp % 4 == 0 and R <= Rp < R + 4
         for k in range(1, tk.KMAX + 1):
             for nfl in (1, 2):
@@ -248,7 +257,19 @@ def test_delayed_slice_budget_takes_every_kernel_shape():
                     need = tk.delayed_slice_smem(ns, itemsize, nfl, k)
                     assert need <= tk.SMEM_BYTES
                     largest = max(largest, need)
-    assert largest == tk.delayed_slice_smem(1024, 8, 2, 32) == 205824
+                    kp = (k + 7) // 8 * 8
+                    if need < 8 * kp + itemsize * nfl * 4 * k * Rp:
+                        lean.add((ns, nfl, itemsize))
+    assert tk.delayed_slice_smem(1024, 8, 2, 32) == 205824
+    assert largest == tk.delayed_slice_smem(1305, 8, 2, 28) == 232440
+    assert tk.delayed_slice_smem(1600, 8, 2, 32) == 188688
+    assert tk.delayed_slice_smem(2048, 8, 2, 32) == 231808
+    assert tk.delayed_slice_smem(2048, 8, 1, 32) == 214016
+    # the lean layout only where the full one does not fit: float64 with
+    # two flavors, from ns = 1153 at k = 32 on
+    assert {(nfl, s) for _, nfl, s in lean} == {(2, 8)}
+    assert min(ns for ns, _, _ in lean) > 1024
+    assert (1153, 2, 8) in lean and (1152, 2, 8) not in lean
     # the submatrix scheme on the same clusters (#2c, R <= 32, ns <= 512:
     # csrc/submatrix_decide.cuh sub_smem_bytes) fits too, the largest
     # shape in 69,120 bytes; #5's grid (csrc/submatrix_update.cu
@@ -265,14 +286,15 @@ def test_delayed_slice_budget_takes_every_kernel_shape():
         C = tk.submatrix_group_ctas(ns)
         R = -(-ns // C)
         assert R <= 64 and C * R >= ns > (C - 1) * R
-    # the wrapper's check takes the largest shape (and then refuses the
-    # CPU tensors)
-    G = torch.zeros((1, 2, 1024, 1024), dtype=torch.float64)
-    v = torch.zeros((1, 1024), dtype=torch.float64)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        tk.check_cuda_slice(G, torch.arange(1024, dtype=torch.int32), v,
-                            torch.zeros((1, 2, 1024), dtype=torch.float64),
-                            v, "delayed", 32)
+    # the wrapper's check takes the largest shape, and the 40x40 lattice's
+    # (and then refuses the CPU tensors)
+    for n in (1600, tk.MAX_SITES):
+        G = torch.zeros((1, 2, n, n), dtype=torch.float64)
+        v = torch.zeros((1, n), dtype=torch.float64)
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            tk.check_cuda_slice(G, torch.arange(n, dtype=torch.int32), v,
+                                torch.zeros((1, 2, n), dtype=torch.float64),
+                                v, "delayed", 32)
 
 
 @pytest.mark.parametrize("scheme", ["rank1", "submatrix"])

@@ -96,8 +96,11 @@ def test_cgs2_kernel_wrapper_rejects_bad_shapes():
 
 def test_cgs2_twin_padded_above_512(rng):
     """n = 520 pads to 544, past the old 512 limit (the kernel now takes
-    n <= 1024 in float32): reconstruction, orthogonality, a non-negative
-    diagonal, and R equal to Householder's after its sign fix."""
+    n <= 1728 in float32): reconstruction, orthogonality, a non-negative
+    diagonal, and R equal to Householder's after its sign fix.  The 34x34
+    lattice's n = 1156 reaches the kernel padded to 1184 with an identity
+    block (the factorization itself is not run: the twin at that size
+    takes too long on the CPU)."""
     n = 520
     A = rng.standard_normal((1, n, n))
     Q, R = tqr.cgs2_qr(torch.as_tensor(A))
@@ -111,21 +114,33 @@ def test_cgs2_twin_padded_above_512(rng):
     Rh = np.linalg.qr(A[0])[1]
     Rh = np.sign(np.diagonal(Rh))[:, None] * Rh
     np.testing.assert_allclose(R[0], Rh, atol=1e-10)
+    seen = []
+    A = torch.as_tensor(rng.standard_normal((2, 1156, 1156)),
+                        dtype=torch.float32)
+    out = tqr.padded_qr(A, True, lambda Ap, w: seen.append(Ap) or (Ap,) * 3)
+    (Ap,) = seen
+    assert Ap.shape == (2, 1184, 1184) and 1184 <= tqr._MAX_N[torch.float32]
+    assert torch.equal(Ap[:, :1156, :1156], A)
+    assert torch.equal(Ap[:, 1156:, 1156:],
+                       torch.eye(28).expand(2, 28, 28))
+    assert not Ap[:, :1156, 1156:].any() and not Ap[:, 1156:, :1156].any()
+    assert all(torch.equal(x, A) for x in out)
 
 
 @pytest.mark.parametrize("dtype,n,ok", [(torch.float32, 1024, True),
-                                        (torch.float32, 1056, False),
+                                        (torch.float32, 1760, False),
                                         (torch.float64, 512, True),
                                         (torch.float64, 544, False),
                                         (torch.float32, 32, True),
-                                        (torch.float32, 992, True),
+                                        (torch.float32, 1728, True),
                                         (torch.float32, 2048, False),
                                         (torch.float64, 32, True),
                                         (torch.float64, 480, True),
                                         (torch.float64, 1024, False)])
 def test_cgs2_kernel_size_limit_by_dtype(dtype, n, ok):
-    """The kernel stages a 32-row panel in shared memory: n <= 1024 in
-    float32, n <= 512 in float64.  Sizes inside the limit pass the shape
+    """The kernel stages a 32-row panel in shared memory: n <= 1728 in
+    float32 (232,448 bytes hold 4 (32 n + 2 32 33 + 72) at n = 1728, not
+    at 1760), n <= 512 in float64.  Sizes inside the limit pass the shape
     check and stop at the device check on a CPU tensor."""
     A = torch.zeros((1, n, n), dtype=dtype)
     with pytest.raises(ValueError,
